@@ -1,9 +1,16 @@
 """Smoke run of pyp_tpu_torch on one CUDA card: builds the port's kernels
 from the sources in this checkout, checks each against its plain PyTorch
-version at the shapes the main path gives it, then drives the main path —
-the gather-engine SPA refinement loop through `pyp_tpu_torch.cli.main` —
-on a synthetic 4,096-particle, box-128 dataset and checks the result
-against the ground truth.
+version at the shapes the main path gives it, then drives the SPA
+refinement loop through `pyp_tpu_torch.cli.main` on a synthetic
+4,096-particle, box-128 dataset, once per engine, and checks each result
+against the ground truth:
+
+  slice      the gather engine (the path of the shift_scored_match kernel);
+  frm_polar  one FRM batch with the matmul and the gather polar sampler;
+  frm_slice  the reference's FRM protocol (the default engine, gold-
+             standard half banks, final polish), held to the reference's
+             quality: FSC(0.143) <= 4.86 Å, masked 10 Å cc vs truth
+             >= 0.94, median angular error < 1°.
 
     python3 chip_smoke.py
 
@@ -136,13 +143,9 @@ def phase_kernel():
     return slice_row
 
 
-def phase_slice():
-    import torch
-
-    from pyp_tpu.io import cistem, mrc
-    from pyp_tpu_torch.ops import kernels
-    from pyp_tpu_torch.tools import e2e_spa, profile_refine
-    from pyp_tpu_torch.tools.e2e_spa import REFINE_ARGS, SLICE
+def phase_synthesize():
+    from pyp_tpu_torch.tools import e2e_spa
+    from pyp_tpu_torch.tools.e2e_spa import SLICE
 
     t0 = time.perf_counter()
     data = e2e_spa.make_dataset(device="cuda", **SLICE)
@@ -150,6 +153,20 @@ def phase_slice():
                                 e2e_spa.START_RESOLUTION)
     emit({"phase": "synthesize", "seconds": time.perf_counter() - t0,
           "n_particles": SLICE["n_particles"], "box": SLICE["box"]})
+    return data, init
+
+
+def _drive_protocol(argv, data, init):
+    """pyp_tpu_torch.cli.main(argv, device="cuda") in a fresh project,
+    with each iteration's wall, FSC(0.143) and device memory peak
+    recorded. Returns (iterations, final table, final map, wall, kernel
+    launches during the run)."""
+    import torch
+
+    from pyp_tpu.io import cistem, mrc
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.tools import e2e_spa, profile_refine
+    from pyp_tpu_torch.tools.e2e_spa import SLICE
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as work:
@@ -157,35 +174,51 @@ def phase_slice():
         os.chdir(work)
         kernels.shift_scored_match.launches = 0
         try:
-            # pyp_tpu_torch.cli.main(REFINE_ARGS, device="cuda"), with each
-            # iteration's wall, FSC(0.143) and device memory peak recorded
             t0 = time.perf_counter()
-            iters = profile_refine.drive(REFINE_ARGS, "cuda")
+            iters = profile_refine.drive(argv, "cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
             launches = kernels.shift_scored_match.launches
             os.chdir(cwd)
-        for it, row in iters.items():
-            emit({"phase": "iteration", "iteration": it, **row})
-        if sorted(iters) != [2, 3, 4]:
-            raise RuntimeError(f"expected iterations 2-4, ran {sorted(iters)}")
-        # iterations 2 (global) .. refine_maxiter + 1 (local)
-        stem = os.path.join(work, "maps", "dataset_r01_04")
+        last = max(iters)
+        stem = os.path.join(work, "maps", f"dataset_r01_{last:02d}")
         table = cistem.read_parameters(stem + ".cistem")
         final = mrc.read(stem + ".mrc")
+    for it, row in iters.items():
+        emit({"phase": "iteration", "argv": argv[1:3], "iteration": it, **row})
     box = SLICE["box"]
     if final.shape != (box, box, box) or not np.isfinite(final).all():
         raise RuntimeError(f"final map has shape {final.shape} or "
                            "non-finite values")
+    return iters, table, final, wall, launches
+
+
+def _quality(table, final, data, init):
+    from pyp_tpu_torch.tools import e2e_spa
+    from pyp_tpu_torch.tools.e2e_spa import SLICE
+
     err = e2e_spa.angular_error_deg(table["phi"], table["theta"],
                                     table["psi"], data)
-    cc0 = e2e_spa.masked_cc(init, data["volume"], SLICE["pixel"], 10.0)
-    cc1 = e2e_spa.masked_cc(final, data["volume"], SLICE["pixel"], 10.0)
+    return {"median_angular_error_deg": float(np.median(err)),
+            "frac_within_5deg": float((err < 5).mean()),
+            "cc_start_10A": e2e_spa.masked_cc(init, data["volume"],
+                                              SLICE["pixel"], 10.0),
+            "cc_final_10A": e2e_spa.masked_cc(final, data["volume"],
+                                              SLICE["pixel"], 10.0)}
+
+
+def phase_slice(data, init):
+    """The gather-engine protocol: the path of the shift_scored_match
+    kernel."""
+    from pyp_tpu_torch.tools.e2e_spa import REFINE_ARGS, SLICE
+
+    iters, table, final, wall, launches = _drive_protocol(REFINE_ARGS, data,
+                                                          init)
+    if sorted(iters) != [2, 3, 4]:
+        raise RuntimeError(f"expected iterations 2-4, ran {sorted(iters)}")
     row = {"phase": "slice", "seconds": wall, "launches": launches,
-           "median_angular_error_deg": float(np.median(err)),
-           "frac_within_5deg": float((err < 5).mean()),
-           "cc_start_10A": cc0, "cc_final_10A": cc1,
+           **_quality(table, final, data, init),
            "final_fsc143_A": iters[4]["fsc143_A"],
            "particles_per_s": SLICE["n_particles"] * 3 / wall}
     emit(row)
@@ -194,10 +227,119 @@ def phase_slice():
     if not row["median_angular_error_deg"] < 10.0:
         raise RuntimeError(f"median angular error {row['median_angular_error_deg']:.2f}° "
                            "is not under 10°")
-    if not cc1 > cc0:
-        raise RuntimeError(f"final cc {cc1:.4f} is not above the starting "
-                           f"map's {cc0:.4f}")
+    if not row["cc_final_10A"] > row["cc_start_10A"]:
+        raise RuntimeError(f"final cc {row['cc_final_10A']:.4f} is not above "
+                           f"the starting map's {row['cc_start_10A']:.4f}")
     return launches
+
+
+def _sync_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+FRM_POLAR_SLACK_DEG = 5.5
+
+
+def phase_frm_polar(data):
+    """One FRM batch (256 particles) at the global iteration's shape and
+    config (box 128, 50-9.6 Å band, 7.5° lattice, +-6 px at 0.5 px) with
+    the matmul sampler and with the gather sampler forced, against the
+    true map. Bar (tests/test_frm.py::TestPolarGather): the gather
+    sampler's median angular error is at most 5.5° above the matmul
+    sampler's."""
+    import torch
+
+    from pyp_tpu_torch.ops import frm
+    from pyp_tpu_torch.ops.fourier_slice import volume_to_fourier
+    from pyp_tpu_torch.tools import e2e_spa
+    from pyp_tpu_torch.tools.e2e_spa import SLICE
+
+    B = 256
+    xs = torch.from_numpy(data["stack"][:B]).cuda()
+    cp = torch.from_numpy(data["ctf_params"][:B]).cuda()
+    truth = {k: data[k][:B] for k in ("phi", "theta", "psi")}
+    F = volume_to_fourier(torch.from_numpy(data["volume"]).cuda())
+    saved = os.environ.get("PYP_TPU_FRM_POLAR")
+    meds, poses_by = {}, {}
+    try:
+        for mode in ("matmul", "gather"):
+            os.environ["PYP_TPU_FRM_POLAR"] = mode
+            cfg = frm.FrmConfig(
+                SLICE["box"], SLICE["pixel"], low_res=50.0, high_res=9.6,
+                angular_step=7.5, shift_extent=6.0, shift_step=0.5,
+                wiener=0.1, device="cuda")
+            if cfg.polar_gather != (mode == "gather"):
+                raise RuntimeError(f"PYP_TPU_FRM_POLAR={mode} was not honoured")
+            bank, bank_s = _sync_s(lambda: cfg.bank(F))
+            (poses, _), first_s = _sync_s(
+                lambda: frm.frm_refine(xs, cp, None, cfg, bank=bank))
+            match_s = statistics.median(_sync_s(
+                lambda: frm.frm_refine(xs, cp, None, cfg, bank=bank))[1]
+                for _ in range(3))
+            p = poses_by[mode] = poses.cpu().numpy()
+            err = e2e_spa.angular_error_deg(p[:, 0], p[:, 1], p[:, 2], truth)
+            meds[mode] = float(np.median(err))
+            same = np.all(np.abs(p - poses_by["matmul"]) < 1e-3, axis=1)
+            emit({"phase": "frm_polar", "sampler": mode, "batch": B,
+                  "poses_equal_to_matmul": float(same.mean()),
+                  "directions": int(bank.FUc.shape[0]),
+                  "rings": int(bank.FUc.shape[1]), "n_psi": cfg.n_psi,
+                  "crop": cfg.n, "median_angular_error_deg": meds[mode],
+                  "bank_build_s": bank_s, "match_first_s": first_s,
+                  "match_s": match_s,
+                  "max_memory_allocated_GiB":
+                      torch.cuda.max_memory_allocated() / 2**30})
+            del bank
+    finally:
+        if saved is None:
+            os.environ.pop("PYP_TPU_FRM_POLAR", None)
+        else:
+            os.environ["PYP_TPU_FRM_POLAR"] = saved
+    if not meds["gather"] <= meds["matmul"] + FRM_POLAR_SLACK_DEG:
+        raise RuntimeError(f"gather sampler median error {meds['gather']:.2f}° "
+                           f"is more than {FRM_POLAR_SLACK_DEG}° above the "
+                           f"matmul sampler's {meds['matmul']:.2f}°")
+
+
+# the reference's 4,096 x box-128 FRM protocol reached FSC(0.143) 4.68 Å
+# and cc 0.946 against the truth (docs/BENCH_E2E.md:131-135); 4.86 Å is
+# one Fourier shell (1/128 px^-1) coarser than 4.68 Å
+FRM_FSC_BAR_A, FRM_CC_BAR, FRM_ERR_BAR_DEG = 4.86, 0.94, 1.0
+
+
+def phase_frm_slice(data, init):
+    """The reference protocol (e2e_spa.FRM_ARGS): iteration 2 global,
+    3-4 local with gold-standard half banks, 5 final with the polish."""
+    from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS, SLICE
+
+    iters, table, final, wall, launches = _drive_protocol(FRM_ARGS, data,
+                                                          init)
+    if sorted(iters) != [2, 3, 4, 5]:
+        raise RuntimeError(f"expected iterations 2-5, ran {sorted(iters)}")
+    row = {"phase": "frm_slice", "seconds": wall,
+           "shift_scored_match_launches": launches,
+           **_quality(table, final, data, init),
+           "final_fsc143_A": iters[5]["fsc143_A"],
+           "particles_per_s": SLICE["n_particles"] * 4 / wall}
+    emit(row)
+    if launches:
+        raise RuntimeError("the FRM protocol launched the gather engine's "
+                           "kernel: the engine was switched")
+    if not row["final_fsc143_A"] <= FRM_FSC_BAR_A:
+        raise RuntimeError(f"final FSC(0.143) {row['final_fsc143_A']:.2f} Å "
+                           f"is not <= {FRM_FSC_BAR_A} Å")
+    if not row["cc_final_10A"] >= FRM_CC_BAR:
+        raise RuntimeError(f"cc vs truth {row['cc_final_10A']:.4f} is not "
+                           f">= {FRM_CC_BAR}")
+    if not row["median_angular_error_deg"] < FRM_ERR_BAR_DEG:
+        raise RuntimeError(f"median angular error {row['median_angular_error_deg']:.3f}° "
+                           f"is not under {FRM_ERR_BAR_DEG}°")
 
 
 def main():
@@ -206,7 +348,10 @@ def main():
     smi = phase_device()
     phase_build()
     k = phase_kernel()
-    launches = phase_slice()
+    data, init = phase_synthesize()
+    launches = phase_slice(data, init)
+    phase_frm_polar(data)
+    phase_frm_slice(data, init)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "shift_scored_match", "route": "cuda",

@@ -6,25 +6,37 @@ the port is tested against. The package imports `torch` and never `jax`.
 It reuses only the JAX-free layers of `pyp_tpu` (io, config, utils,
 stream.web, cli._project_params).
 
-Ported slice: the SPA refinement loop with the gather engine
-(`pipeline.refine.refine_loop` with `refine_engine=gather`), whose global
-search scores through a hand-written CUDA kernel
-(`ops.kernels.shift_scored_match`, source in `csrc/`).
+Ported: the SPA gold-standard refinement loop (`pipeline.refine.refine_loop`)
+with both pose-search engines — FRM (`ops.frm`, the default: polar
+matching against a direction bank per half map, then a final sub-lattice
+polish) and gather (whose global search scores through the hand-written
+CUDA kernel `ops.kernels.shift_scored_match`, source in `csrc/`) — with
+reference auto-masking, per-particle defocus and beam-tilt refinement.
 
 Layout:
-  pyp_tpu_torch.core      — geometry, CTF model, FFT crops, filters, FSC
-  pyp_tpu_torch.ops       — Fourier-slice operators, refine3d, reconstruct,
-                            the CUDA kernels and their build helper
-  pyp_tpu_torch.pipeline  — the refinement loop
-  pyp_tpu_torch.state     — state exchange with the JAX package
-  pyp_tpu_torch.cli       — the `refine` mode
+  pyp_tpu_torch.core        — geometry, CTF model, FFT crops, filters, FSC
+  pyp_tpu_torch.ops         — Fourier-slice operators, FRM, refine3d,
+                              reconstruct, the CUDA kernels and their build
+                              helper
+  pyp_tpu_torch.postprocess — the reference auto-mask
+  pyp_tpu_torch.pipeline    — the refinement loop
+  pyp_tpu_torch.state       — state exchange with the JAX package
+  pyp_tpu_torch.cli         — the `refine` mode
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __version__ = "0.1.0"
+
+
+def as_f32(x, device) -> torch.Tensor:
+    """float32 tensor on `device` from a numpy array, a sequence or a
+    tensor."""
+    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=torch.float32)
 
 
 def resolve_device(device) -> torch.device:

@@ -1,10 +1,11 @@
 """Command-line entry point of the port: the `refine` mode on a CUDA device.
 
-    python -m pyp_tpu_torch.cli refine -refine_engine gather -refine_maxiter 3 ...
+    python -m pyp_tpu_torch.cli refine -refine_maxiter 4 -refine_goldstandard ...
 
 Reads stack.mrc, stack.cistem and initial_model.mrc (or -model_path) from
-the project directory, like `pyp_tpu refine`, and runs the gather-engine
-refinement loop; parameters persist in the same project file
+the project directory, like `pyp_tpu refine`, and runs the refinement loop
+with the engine the parameters name (`-refine_engine frm`, the default, or
+`gather`); parameters persist in the same project file
 (.pyp_tpu_config.toml), read through pyp_tpu.cli._project_params. Every
 other mode, SLURM submission and ab initio are not ported yet and exit
 non-zero.

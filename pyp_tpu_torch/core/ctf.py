@@ -46,3 +46,37 @@ def chi(g, df, voltage_kv, cs_mm, phase_shift_rad=0.0):
     return (np.pi * lam * g * g * df
             - 0.5 * np.pi * cs * lam ** 3 * g ** 4
             + phase_shift_rad)
+
+
+def _fftfreq(n: int, pixel_size: float, rfft: bool, device):
+    """np.fft.(r)fftfreq(n, d=pixel_size) in float32, computed as the JAX
+    package computes it (integer wavenumbers divided by float32(n * d))."""
+    k = np.fft.rfftfreq(n) * n if rfft else np.fft.fftfreq(n) * n
+    return (torch.as_tensor(k.astype(np.float32), device=device)
+            / torch.tensor(pixel_size * n, dtype=torch.float32, device=device))
+
+
+def ctf_2d(shape, pixel_size, df1, df2, angast_deg, voltage_kv, cs_mm,
+           w=0.07, phase_shift_rad=0.0, bfactor=0.0, rfft=True):
+    """The 2D CTF on an FFT-layout grid: shape = (ny, nx) of the real-space
+    image; the parameters are numbers or tensors broadcastable against each
+    other, and the output has shape broadcast(params) + (ny, nx//2+1) with
+    `rfft`, + (ny, nx) without (the full fftfreq layout)."""
+    ny, nx = shape
+    dev = next((p.device for p in (df1, df2, angast_deg, phase_shift_rad)
+                if isinstance(p, torch.Tensor)), None)
+    fy = _fftfreq(ny, pixel_size, False, dev).reshape(ny, 1)
+    fx = _fftfreq(nx, pixel_size, rfft, dev).reshape(1, -1)
+    g = torch.sqrt(fy * fy + fx * fx)
+    azim = torch.atan2(fy, fx)
+
+    def bc(p):
+        return torch.as_tensor(p, dtype=torch.float32, device=dev)[..., None, None]
+
+    df = defocus_at_azimuth(bc(df1), bc(df2), bc(angast_deg), azim)
+    x = chi(g, df, voltage_kv, cs_mm, bc(phase_shift_rad))
+    amp = math.atan2(w, math.sqrt(max(1.0 - w * w, 0.0)))
+    out = -torch.sin(x + amp)
+    if bfactor is not None:
+        out = out * torch.exp(-0.25 * bc(bfactor) * g * g)
+    return out

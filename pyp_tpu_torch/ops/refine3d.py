@@ -12,7 +12,9 @@ of pyp_tpu/ops/refine3d.py.
     few gradient-ascent steps (torch.autograd.grad of the batch-summed
     score; each particle's score depends only on its own pose);
   * scoring is FREALIGN-style CTF-weighted normalized cross-correlation in
-    an annulus, with optional per-shell SSNR weights.
+    an annulus, with optional per-shell SSNR weights;
+  * at fixed poses: per-particle defocus refinement (`refine_defocus`) and
+    the dataset beam tilt (`estimate_beam_tilt`, `correct_beam_tilt`).
 
 Public functions keep the JAX layouts: rfft half-spectra, (phi, theta, psi,
 sy, sx) poses in degrees and pixels, ZYZ Euler angles.
@@ -26,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pyp_tpu_torch import resolve_device
+from pyp_tpu_torch import as_f32, resolve_device
 from pyp_tpu_torch.core import ctf as ctf_model
 from pyp_tpu_torch.core.geometry import apply_symmetry_matrices, euler_to_matrix
 from pyp_tpu_torch.ops.fourier_slice import (
@@ -385,8 +387,7 @@ def refine_batch(
     dev = resolve_device(device)
 
     def on(x):
-        return torch.as_tensor(np.asarray(x) if not isinstance(
-            x, torch.Tensor) else x).to(device=dev, dtype=torch.float32)
+        return as_f32(x, dev)
 
     stack = on(stack)
     ctf_params = on(ctf_params)
@@ -440,3 +441,155 @@ def refine_batch(
         logp=logp,
         sigma=sigma,
     )
+
+
+# ---------------------------------------------------------------------------
+# per-particle defocus (refine_ctf role)
+# ---------------------------------------------------------------------------
+
+def refine_defocus(
+    stack,
+    ctf_params,
+    Fref,
+    poses,
+    mask_pts,
+    n: int,
+    pixel_size: float,
+    search_range: float = 500.0,
+    n_steps: int = 21,
+    voltage_kv: float = 300.0,
+    cs_mm: float = 2.7,
+    amplitude_contrast: float = 0.07,
+):
+    """Per-particle defocus refinement at fixed pose (tensors on one
+    device): score a symmetric grid of `n_steps` defocus offsets in
+    [-search_range, search_range] for every particle at once, then refine
+    the best by a parabola through it and its neighbours (not at the grid
+    ends). df1 and df2 move together. Returns (new ctf_params, best
+    scores)."""
+    X = image_to_fourier(stack)
+    vol_pad = Fref.shape[0] // n
+    offsets = torch.linspace(-search_range, search_range, n_steps,
+                             device=stack.device)
+    # the pose is fixed across the sweep: gather the reference slice and
+    # the shifted particle values once; only the CTF varies with defocus
+    R = euler_to_matrix(poses[:, 0], poses[:, 1], poses[:, 2])
+    q = (mask_pts[None, :, 1, None] * R[:, None, 0, :]
+         + mask_pts[None, :, 0, None] * R[:, None, 1, :])       # (B, G, 3)
+    u = gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))
+    xv = gather_2d_hermitian(X, mask_pts)                      # (B, G)
+    ph = 2.0 * np.pi * (mask_pts[None, :, 0] * poses[:, 3:4]
+                        + mask_pts[None, :, 1] * poses[:, 4:5]) / n
+    xu = xv.conj() * torch.complex(torch.cos(ph), torch.sin(ph)) * u
+    xnorm2 = (xv.abs() ** 2).sum(dim=1)
+    u2 = u.abs() ** 2
+    cp = ctf_params[:, None, :, None]                          # (B, 1, 4, 1)
+    d = offsets[None, :, None]                                 # (1, S, 1)
+    c = _ctf_at_points(mask_pts, n, pixel_size, cp[:, :, 0] + d,
+                       cp[:, :, 1] + d, cp[:, :, 2], voltage_kv, cs_mm,
+                       amplitude_contrast, cp[:, :, 3])        # (B, S, G)
+    num = (xu.real[:, None, :] * c).sum(dim=-1)
+    den = torch.sqrt(xnorm2[:, None] * (c * c * u2[:, None, :]).sum(dim=-1)
+                     + 1e-12)
+    scores = num / den                                         # (B, S)
+    i = torch.argmax(scores, dim=1)
+    im = torch.clamp(i, 1, n_steps - 2)
+    s0, s1, s2 = (torch.gather(scores, 1, (im + k)[:, None])[:, 0]
+                  for k in (-1, 0, 1))
+    denom = s0 + s2 - 2.0 * s1
+    frac = torch.where(denom.abs() > 1e-9, 0.5 * (s0 - s2) / denom,
+                       torch.zeros_like(denom))
+    frac = torch.clamp(frac, -1.0, 1.0)
+    step = offsets[1] - offsets[0]
+    best = offsets[im] + frac * step
+    best = torch.where((i == 0) | (i == n_steps - 1), offsets[i], best)
+    new_cp = ctf_params.clone()
+    new_cp[:, 0] += best
+    new_cp[:, 1] += best
+    return new_cp, scores.max(dim=1).values
+
+
+# ---------------------------------------------------------------------------
+# beam tilt (refine_ctf role: the antisymmetric coma term)
+# ---------------------------------------------------------------------------
+
+def beam_tilt_phase(n: int, pixel_size: float, tilt_x: float, tilt_y: float,
+                    voltage_kv: float = 300.0, cs_mm: float = 2.7,
+                    device="cpu"):
+    """Beam-tilt phase field on the rfft grid (radians):
+    dphi(g) = 2 pi Cs lambda^2 |g|^2 (gx tx + gy ty), g in 1/Å, Cs and
+    lambda in Å, (tx, ty) the tilt in radians."""
+    lam = ctf_model.wavelength(voltage_kv).to(device)
+    cs_A = cs_mm * 1e7
+    ky, kx = (torch.as_tensor((np.fft.fftfreq(n) * n).astype(np.float32),
+                              device=device),
+              torch.arange(n // 2 + 1, dtype=torch.float32, device=device))
+    gy = ky[:, None] / (n * pixel_size)
+    gx = kx[None, :] / (n * pixel_size)
+    g2 = gx * gx + gy * gy
+    return (2.0 * np.pi * cs_A * lam * lam) * g2 * (gx * tilt_x + gy * tilt_y)
+
+
+def estimate_beam_tilt(
+    stack, ctf_params, Fref, poses,
+    n: int, pixel_size: float,
+    voltage_kv: float = 300.0, cs_mm: float = 2.7,
+    amplitude_contrast: float = 0.07,
+    low_res: float = 20.0, high_res: float = 4.0, batch: int = 1024,
+):
+    """(tilt_x, tilt_y) in radians, as 0-dim tensors, from the
+    dataset-summed cross-phase D(g) = sum_b conj(CTF_b slice_b phasor_b) X_b
+    (accumulated over batches of `batch` particles): where |D| is large,
+    arg D(g) ~ dphi(g), and the antisymmetric cubic model is linear in
+    (tx, ty), so a |D|-weighted least squares on sin(arg D) over the band
+    [1/low_res, 1/high_res] is a 2x2 solve."""
+    from pyp_tpu_torch.ops import reconstruct as rec
+    from pyp_tpu_torch.ops.fourier_slice import project
+
+    dev = stack.device
+    D = None
+    for lo in range(0, stack.shape[0], batch):
+        sl = slice(lo, lo + batch)
+        X = image_to_fourier(stack[sl])
+        R = euler_to_matrix(poses[sl, 0], poses[sl, 1], poses[sl, 2])
+        ctfs = rec._ctf_grids(n, pixel_size, ctf_params[sl], voltage_kv,
+                              cs_mm, amplitude_contrast)
+        U = rec._shift_correct(project(Fref, R, n) * ctfs, poses[sl, 3:5], n)
+        part = (U.conj() * X).sum(dim=0)                  # (n, nxf)
+        D = part if D is None else D + part
+
+    ky = torch.as_tensor((np.fft.fftfreq(n) * n).astype(np.float32),
+                         device=dev)[:, None]
+    kx = torch.arange(n // 2 + 1, dtype=torch.float32, device=dev)[None, :]
+    gphys = torch.sqrt(ky * ky + kx * kx) / (n * pixel_size)
+    band = (gphys >= 1.0 / low_res) & (gphys <= 1.0 / high_res)
+    wgt = D.abs() * band
+    # small-angle: sin(arg D) ~ dphi; basis fields per unit tilt
+    ph_x = beam_tilt_phase(n, pixel_size, 1.0, 0.0, voltage_kv, cs_mm, dev)
+    ph_y = beam_tilt_phase(n, pixel_size, 0.0, 1.0, voltage_kv, cs_mm, dev)
+    s = D.imag / torch.clamp(D.abs(), min=1e-12)           # sin(arg D)
+    axx = (wgt * ph_x * ph_x).sum()
+    axy = (wgt * ph_x * ph_y).sum()
+    ayy = (wgt * ph_y * ph_y).sum()
+    bx = (wgt * ph_x * s).sum()
+    by = (wgt * ph_y * s).sum()
+    det = axx * ayy - axy * axy
+    ok = det.abs() > 1e-20
+    zero = torch.zeros((), device=dev)
+    tx = torch.where(ok, (bx * ayy - by * axy) / det, zero)
+    ty = torch.where(ok, (by * axx - bx * axy) / det, zero)
+    return tx, ty
+
+
+def correct_beam_tilt(stack, tilt_x: float, tilt_y: float, pixel_size: float,
+                      voltage_kv: float = 300.0, cs_mm: float = 2.7):
+    """Remove a beam tilt from a particle stack (tensor): multiply the
+    spectra by e^{-i dphi}."""
+    from pyp_tpu_torch.ops.fourier_slice import fourier_to_image
+
+    n = stack.shape[-1]
+    ph = beam_tilt_phase(n, pixel_size, tilt_x, tilt_y, voltage_kv, cs_mm,
+                         stack.device)
+    X = image_to_fourier(stack)
+    return fourier_to_image(X * torch.complex(torch.cos(ph), -torch.sin(ph)),
+                            n)

@@ -1,20 +1,22 @@
-"""Iterative 3D refinement loop — the torch port of pyp_tpu/pipeline/refine.py
-for the gather engine (`refine_engine=gather`).
+"""Iterative 3D refinement loop — the torch port of pyp_tpu/pipeline/refine.py.
 
-Per iteration: pose refinement over particle batches (global search plus
-local gradient polish, or local polish alone once the table has poses),
-reconstruction of half maps, FSC/resolution bookkeeping, and durable state
-(maps/<dataset>_r01_02.mrc, half maps, .cistem table, FSC text, history
-JSON) in the same files the JAX package writes, so `refine_iter` resumes a
-run started by either package.
+Per iteration: optional reference masking (refine_masking_method auto or
+file), pose refinement over particle batches with the FRM engine (the
+default: a direction bank per reference, with gold-standard half banks and
+a final-iteration sub-lattice polish) or the gather engine (global search
+plus local gradient polish), reconstruction of half maps, FSC/resolution
+bookkeeping, and durable state (maps/<dataset>_r01_02.mrc, half maps,
+.cistem table, FSC text, history JSON) in the same files the JAX package
+writes, so `refine_iter` resumes a run started by either package. The loop
+also applies the calibrated beam tilt (scope_beam_tilt_x/y), the one-shot
+beam-tilt estimate (refine_beamtilt) and per-particle defocus refinement
+(refine_fdef).
 
-Not ported yet (each raises NotImplementedError when requested): the FRM
-engine, per-particle defocus refinement (refine_fdef), beam tilt
-(refine_beamtilt, scope_beam_tilt_x/y), the final B-factor sharpening
-(reconstruct_fbfact), model fitting (model_fit), matching projections
-(refine_fmatch), score shaping, reference masking other than spherical,
-likelihood blurring (reconstruct_lblur) and Ewald-sphere insertion
-(reconstruct_iewald). There is no silent switch to another engine.
+Not ported yet (each raises NotImplementedError when requested): the final
+B-factor sharpening (reconstruct_fbfact), model fitting (model_fit),
+matching projections (refine_fmatch), score shaping, likelihood blurring
+(reconstruct_lblur) and Ewald-sphere insertion (reconstruct_iewald). There
+is no silent switch to another engine or device.
 """
 
 from __future__ import annotations
@@ -30,25 +32,22 @@ from pyp_tpu.config.params import param
 from pyp_tpu.io import cistem, mrc
 from pyp_tpu.stream.web import Web
 from pyp_tpu.utils import Timer, get_logger
-from pyp_tpu_torch import resolve_device
+from pyp_tpu_torch import as_f32, resolve_device
 from pyp_tpu_torch.core import fsc as fsc_mod
 from pyp_tpu_torch.core.fft import fourier_crop_3d
 from pyp_tpu_torch.core.filters import normalize_images, soft_circular_mask
 from pyp_tpu_torch.core.geometry import euler_to_matrix
+from pyp_tpu_torch.ops import frm
 from pyp_tpu_torch.ops import reconstruct as rec
 from pyp_tpu_torch.ops import refine3d
+from pyp_tpu_torch.ops.fourier_slice import volume_to_fourier
+from pyp_tpu_torch.postprocess.core import auto_mask
 
 logger = get_logger("refine")
 
 
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _on(x, dev):
-    """float32 tensor on `dev` from a numpy array or a tensor."""
-    x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-    return x.to(device=dev, dtype=torch.float32)
 
 
 def table_to_ctf_params(table: cistem.Table) -> np.ndarray:
@@ -158,17 +157,10 @@ def check_ported(params: dict):
     """Raise NotImplementedError for every requested feature the port does
     not have yet; never switch to another engine silently."""
     engine = str(params.get("refine_engine") or "frm")
-    if engine == "frm":
-        raise NotImplementedError(
-            "FRM engine is ported in a later PR; use -refine_engine gather")
-    if engine != "gather":
+    if engine not in ("frm", "gather"):
         raise NotImplementedError(f"refine_engine={engine!r} is not ported; "
-                                  "use -refine_engine gather")
+                                  "use -refine_engine frm or gather")
     unported = [
-        ("refine_fdef", "per-particle defocus refinement (refine_fdef)"),
-        ("refine_beamtilt", "beam-tilt refinement (refine_beamtilt)"),
-        ("scope_beam_tilt_x", "beam-tilt correction (scope_beam_tilt_x)"),
-        ("scope_beam_tilt_y", "beam-tilt correction (scope_beam_tilt_y)"),
         ("reconstruct_fbfact", "B-factor sharpening (reconstruct_fbfact)"),
         ("model_fit", "model fitting (model_fit)"),
         ("refine_fmatch", "matching projections (refine_fmatch)"),
@@ -182,24 +174,173 @@ def check_ported(params: dict):
     if _shaping_requested(params):
         raise NotImplementedError("score shaping (reconstruct_min*/max*, "
                                   "reconstruct_shapr) is ported in a later PR")
+
+
+def _reference_mask(params, ref_volume, pixel, dev):
+    """The refine_masking_method mask on `dev`: `auto` masks the reference
+    by its own shape (postprocess.core.auto_mask), `file` reads the mask
+    volume refine_maskth; spherical (the default) returns None, because the
+    particle-side soft circle already does that job."""
     mm = str(params.get("refine_masking_method") or "spherical")
-    if mm != "spherical":
-        raise NotImplementedError(f"refine_masking_method={mm!r} is ported "
-                                  "in a later PR; use spherical")
+    if mm == "auto":
+        return auto_mask(as_f32(ref_volume, dev), pixel_size=pixel)
+    if mm == "file":
+        return as_f32(mrc.read(str(params["refine_maskth"])), dev)
+    return None
+
+
+def _refine_gather(match_rows, table, ctf_params, ref_volume, params,
+                   iteration, pixel, batch, global_search, shell_w, dev):
+    """Gather-engine poses for every row: refine3d.refine_batch per batch
+    against the combined reference."""
+    rhref = float(param(params["refine_rhref"], iteration))
+    rb_kwargs = dict(
+        angular_step=float(param(params["refine_dang"], iteration)),
+        psi_step=float(params["refine_psi_step"]),
+        low_res=float(params["refine_rlref"]),
+        high_res_search=max(rhref, 2.5 * pixel),
+        high_res_refine=max(rhref * 0.8, 2.1 * pixel),
+        shift_extent=float(params["refine_searchx"]),
+        shift_step=float(params.get("refine_shift_step") or 2.0),
+        symmetry=str(params["particle_sym"]),
+        mode="global" if global_search else "local",
+        topk=int(params.get("refine_topk") or 4),
+        local_iters=int(params.get("refine_local_iters") or 24),
+        lr_angles=float(params.get("refine_lr_angles") or 2.0),
+        lr_shifts=float(params.get("refine_lr_shifts") or 0.4),
+        voltage_kv=float(params["scope_voltage"]),
+        cs_mm=float(params["scope_cs"]),
+        amplitude_contrast=float(params["scope_wgh"]),
+    )
+    ref_dev = as_f32(ref_volume, dev)
+    n_total = table.n_rows
+    results = []
+    for lo in range(0, n_total, batch):
+        hi = min(lo + batch, n_total)
+        init = None if global_search else table_to_poses(table, pixel)[lo:hi]
+        results.append(refine3d.refine_batch(
+            match_rows(slice(lo, hi)), ctf_params[lo:hi], ref_dev, pixel,
+            init_poses=init, shell_weights=shell_w, device=dev, **rb_kwargs))
+    return refine3d.RefineResult(*(
+        torch.cat([getattr(r, f) for r in results])
+        for f in refine3d.RefineResult._fields))
+
+
+def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
+                params, iteration, pixel, n_box, batch, global_search,
+                fsc_curve, shell_w, dev):
+    """FRM-engine poses for every row. One direction bank per reference
+    (the combined map, or with the gold standard each half map), each
+    half-set's rows matched in batches against their own bank; then, on
+    the final iteration (refine_frm_polish), the gradient polish of
+    refine3d.local_refine against the same reference, which removes the
+    lattice quantization (~step/2) of the FRM directions. Each particle's
+    result depends only on its own row, so routing rows by half gives what
+    running every row through both banks and selecting would."""
+    rhref = float(param(params["refine_rhref"], iteration))
+    high_res = max(rhref * 0.8, 2.1 * pixel)
+    searchx = float(params["refine_searchx"])
+    # local iterations refine shifts around the table estimate (already
+    # sub-pixel after the global iteration): +/-2 px
+    se = searchx if global_search else min(searchx, 2.0)
+    cfg = frm.get_config(
+        n_box, pixel,
+        low_res=float(params["refine_rlref"]),
+        high_res=high_res,
+        angular_step=float(param(params["refine_dang"], iteration)),
+        symmetry=str(params["particle_sym"]),
+        shift_extent=se,
+        shift_step=float(params.get("refine_frm_shift_step") or 0)
+        or max(0.5, searchx / 12.0),
+        voltage_kv=float(params["scope_voltage"]),
+        cs_mm=float(params["scope_cs"]),
+        amplitude_contrast=float(params["scope_wgh"]),
+        wiener=float(params.get("refine_frm_wiener") or 0.1),
+        rounds=int(params.get("refine_frm_rounds") or 3),
+        n_psi=int(params.get("refine_frm_npsi") or 0) or None,
+        upsample=int(params.get("refine_frm_upsample") or 4),
+        crop_margin=int(params.get("refine_frm_crop_margin") or 8),
+        device=dev,
+    )
+    d_block = int(params.get("refine_frm_dblock") or 0) or None
+    iblow = int(params.get("refine_iblow") or 2)
+    n_total = table.n_rows
+    gold = bool(params.get("refine_goldstandard")) and ref_halves is not None
+    refs = tuple(ref_halves) if gold else (ref_volume,)
+    halves = _half_subsets(table) if gold else np.zeros(n_total, np.int64)
+    groups = [np.nonzero(halves == h)[0] for h in range(len(refs))]
+    # pose priors restrict the local search to a cone around the current
+    # pose; without priors the local mode searches the full lattice
+    cone = (None if global_search or not params.get("refine_priors", True)
+            else float(params.get("refine_frm_cone") or 20.0))
+    poses_now = as_f32(table_to_poses(table, pixel), dev)
+    all_poses = torch.zeros((n_total, 5), device=dev)
+    all_scores = torch.zeros(n_total, device=dev)
+    for rows_h, ref in zip(groups, refs):
+        bank = cfg.bank(volume_to_fourier(as_f32(ref, dev), pad=iblow))
+        logger.info("FRM bank iter %d: D=%d R=%d n_psi=%d (%.2f GiB); "
+                    "polar=%s; %d rows", iteration, *bank.FUc.shape,
+                    bank.FUc.numel() * 8 / 2**30,
+                    "gather" if cfg.polar_gather else "matmul", len(rows_h))
+        for lo in range(0, len(rows_h), batch):
+            rows = rows_h[lo:lo + batch]
+            r_t = torch.as_tensor(rows, device=dev)
+            poses, scores = frm.frm_refine(
+                match_rows(rows), ctf_params[rows], None, cfg, bank=bank,
+                init_poses=None if global_search else poses_now[r_t],
+                prior_cone_deg=cone, fsc_curve=fsc_curve, d_block=d_block)
+            all_poses[r_t] = poses
+            all_scores[r_t] = scores
+        bank = None  # free it before the next bank and the polish
+
+    polish_when = str(params.get("refine_frm_polish") or "final")
+    if polish_when == "always" or (
+            polish_when == "final" and "refine_maxiter" in params
+            and iteration >= int(params["refine_maxiter"]) + 1):
+        polish_pts = as_f32(refine3d.make_mask_points(
+            n_box, pixel, float(params["refine_rlref"]), high_res), dev)
+        # cisTEM refine_mask order (psi, theta, phi, shx, shy) -> the pose
+        # layout (phi, theta, psi, sy, sx)
+        rm = [float(v) for v in str(params.get("refine_mask") or "1,1,1,1,1"
+                                    ).replace(":", ",").split(",")]
+        pose_mask = (rm[2], rm[1], rm[0], rm[4], rm[3])
+        # polish activation memory grows with batch x band points
+        pstep = max(64, batch // max(1, (n_box // 128) ** 2))
+        for rows_h, ref in zip(groups, refs):
+            F = volume_to_fourier(as_f32(ref, dev), pad=iblow)
+            for lo in range(0, len(rows_h), pstep):
+                rows = rows_h[lo:lo + pstep]
+                r_t = torch.as_tensor(rows, device=dev)
+                p, sc = refine3d.local_refine(
+                    match_rows(rows), as_f32(ctf_params[rows], dev), F,
+                    all_poses[r_t], polish_pts, n_box, pixel,
+                    voltage_kv=float(params["scope_voltage"]),
+                    cs_mm=float(params["scope_cs"]),
+                    amplitude_contrast=float(params["scope_wgh"]),
+                    iters=int(params.get("refine_local_iters") or 24),
+                    lr_angles=float(params.get("refine_lr_angles") or 2.0),
+                    lr_shifts=float(params.get("refine_lr_shifts") or 0.4),
+                    weights=shell_w, pose_mask=pose_mask)
+                all_poses[r_t] = p
+                all_scores[r_t] = sc
+    return frm.to_refine_result(all_poses, all_scores,
+                                n_band_points=len(cfg.radii) * cfg.n_psi)
 
 
 def refinement_iteration(
     stack, table: cistem.Table, ref_volume, params: dict, iteration: int,
-    batch: int = 256, fsc_curve=None, device="cpu",
+    batch: int = 256, fsc_curve=None, ref_halves=None, device="cpu",
 ):
     """One iteration on `device`: refine poses in batches of at most
     `batch` particles, then reconstruct half maps + FSC. `stack` is a
     numpy array or a tensor (either stays where it is; each batch moves to
     the device). Returns (table, Reconstruction, FSC resolution in Å).
 
-    The gather engine aligns every particle against the combined map, as
-    the JAX package's gather engine does, so the previous half maps are
-    not an input."""
+    ref_halves: the previous iteration's (half1, half2) maps. With the FRM
+    engine and refine_goldstandard, each half-set's particles align only
+    against their own half map (its own bank and polish reference). The
+    gather engine aligns every particle against the combined map, as the
+    JAX package's gather engine does."""
     check_ported(params)
     dev = resolve_device(device)
     pixel = pixel_hint(table, params)
@@ -234,15 +375,25 @@ def refinement_iteration(
     fmasks = None
     if focus is not None and not global_search:
         fmasks = refine3d.focus_mask_2d(
-            _on(table_to_poses(table, pixel), dev), focus, n_box, pixel)
+            as_f32(table_to_poses(table, pixel), dev), focus, n_box, pixel)
 
-    def match_batch(lo, hi):
-        xs = _on(stack[lo:hi], dev)
+    def match_rows(rows):
+        """Matching images of `rows` (a slice or an int array) on `dev`."""
+        idx = rows if isinstance(rows, slice) else torch.as_tensor(rows)
+        xs = as_f32(stack[rows if isinstance(stack, np.ndarray) else idx], dev)
         if m2d is not None:
             xs = xs * m2d[None]
         if fmasks is not None:
-            xs = xs * fmasks[lo:hi]
+            xs = xs * fmasks[idx]
         return xs
+
+    # reference masking ahead of matching (refine_masking_method), applied
+    # to the reference and to both half maps
+    m3 = _reference_mask(params, ref_volume, pixel, dev)
+    if m3 is not None:
+        ref_volume = as_f32(ref_volume, dev) * m3
+        if ref_halves is not None:
+            ref_halves = tuple(as_f32(h, dev) * m3 for h in ref_halves)
 
     shell_w = None
     if fsc_curve is not None and params.get("refine_fssnr", True):
@@ -257,41 +408,18 @@ def refinement_iteration(
             g2 = g2 / (n_box * pixel) ** 2
             shell_w = (shell_w * np.exp(-rbfact * g2 / 4.0)).astype(np.float32)
 
-    dang = float(param(params["refine_dang"], iteration))
-    rb_kwargs = dict(
-        angular_step=dang,
-        psi_step=float(params["refine_psi_step"]),
-        low_res=float(params["refine_rlref"]),
-        high_res_search=max(rhref, 2.5 * pixel),
-        high_res_refine=max(rhref * 0.8, 2.1 * pixel),
-        shift_extent=float(params["refine_searchx"]),
-        shift_step=float(params.get("refine_shift_step") or 2.0),
-        symmetry=str(params["particle_sym"]),
-        mode="global" if global_search else "local",
-        topk=int(params.get("refine_topk") or 4),
-        local_iters=int(params.get("refine_local_iters") or 24),
-        lr_angles=float(params.get("refine_lr_angles") or 2.0),
-        lr_shifts=float(params.get("refine_lr_shifts") or 0.4),
-        voltage_kv=float(params["scope_voltage"]),
-        cs_mm=float(params["scope_cs"]),
-        amplitude_contrast=float(params["scope_wgh"]),
-    )
-
+    engine = str(params.get("refine_engine") or "frm")
     if not params.get("refine_skip"):
         with Timer(f"refinement iteration {iteration}"):
-            ref_dev = _on(ref_volume, dev)
-            results = []
-            for lo in range(0, n_total, batch):
-                hi = min(lo + batch, n_total)
-                init = (None if global_search
-                        else table_to_poses(table, pixel)[lo:hi])
-                results.append(refine3d.refine_batch(
-                    match_batch(lo, hi), ctf_params[lo:hi], ref_dev, pixel,
-                    init_poses=init, shell_weights=shell_w, device=dev,
-                    **rb_kwargs))
-            merged = refine3d.RefineResult(*(
-                torch.cat([getattr(r, f) for r in results])
-                for f in refine3d.RefineResult._fields))
+            if engine == "frm":
+                merged = _refine_frm(
+                    match_rows, table, ctf_params, ref_volume, ref_halves,
+                    params, iteration, pixel, n_box, batch, global_search,
+                    fsc_curve, shell_w, dev)
+            else:
+                merged = _refine_gather(
+                    match_rows, table, ctf_params, ref_volume, params,
+                    iteration, pixel, batch, global_search, shell_w, dev)
             table = poses_into_table(table, merged, pixel,
                                      freeze=_dof_freeze(params))
 
@@ -355,7 +483,7 @@ def refinement_iteration(
         rec_stack = stack
         if params.get("reconstruct_norm"):
             # per-particle normalization ahead of insertion
-            rec_stack = normalize_images(_on(stack, dev))
+            rec_stack = normalize_images(as_f32(stack, dev))
         # reconstruct_rrec: hard reconstruction resolution limit (Å); the
         # final iteration otherwise always reconstructs full-size
         rrec = float(params.get("reconstruct_rrec") or 0.0)
@@ -414,6 +542,47 @@ def _rotation_change_deg(prev_poses, now):
     return np.degrees(np.arccos(np.clip((tr - 1) / 2, -1, 1)))
 
 
+def _map_stack(fn, stack, dev, batch: int = 1024):
+    """fn applied on `dev` to each batch of a numpy stack; numpy float32
+    result."""
+    out = np.empty(stack.shape, dtype=np.float32)
+    for lo in range(0, len(stack), batch):
+        out[lo:lo + batch] = _np(fn(as_f32(stack[lo:lo + batch], dev)))
+    return out
+
+
+def _refine_defocus_table(stack, table, volume, params, it, pixel, dev):
+    """Per-particle defocus refinement at the table's poses against
+    `volume` (refine3d.refine_defocus in batches of reconstruct_batch);
+    df1 and df2 move by the same offset, astigmatism stays."""
+    rhref = float(param(params["refine_rhref"], it))
+    n = stack.shape[-1]
+    Fref = volume_to_fourier(as_f32(volume, dev))
+    pts = as_f32(refine3d.make_mask_points(n, pixel, float(params["refine_rlref"]),
+                                        max(rhref, 2.5 * pixel)), dev)
+    cp_all = table_to_ctf_params(table)
+    poses_all = table_to_poses(table, pixel)
+    bsz = int(params.get("reconstruct_batch") or 256)
+    new_df = []
+    for lo in range(0, len(stack), bsz):
+        hi = min(lo + bsz, len(stack))
+        cp_b, _ = refine3d.refine_defocus(
+            as_f32(stack[lo:hi], dev), as_f32(cp_all[lo:hi], dev), Fref,
+            as_f32(poses_all[lo:hi], dev), pts, n, pixel,
+            search_range=float(params.get("refine_def_range") or 500.0),
+            n_steps=int(params.get("refine_def_steps") or 21),
+            voltage_kv=float(params["scope_voltage"]),
+            cs_mm=float(params["scope_cs"]),
+            amplitude_contrast=float(params["scope_wgh"]))
+        new_df.append(_np(cp_b[:, 0]))
+    d_off = np.concatenate(new_df) - cp_all[:, 0]
+    table["defocus_1"] = np.asarray(table["defocus_1"]) + d_off
+    table["defocus_2"] = np.asarray(table["defocus_2"]) + d_off
+    logger.info("defocus refinement: median |Δdf| %.1f Å",
+                float(np.median(np.abs(d_off))))
+    return table
+
+
 def refine_loop(stack, table, initial_model, params, work_dir=".",
                 dataset="dataset", cls: int = 1, device="cpu"):
     """Multi-iteration refinement on `device` with durable per-iteration
@@ -436,6 +605,7 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
     # would have seen) + prior history
     history = []
     fsc_curve = None
+    ref_halves = None
     for it in range(maxiter + 1, start - 1, -1):
         m = maps_dir / f"{stem}_{it:02d}.mrc"
         t = maps_dir / f"{stem}_{it:02d}.cistem"
@@ -447,6 +617,7 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
             if h1p.exists() and h2p.exists():
                 h1 = mrc.read(h1p).astype(np.float32)
                 h2 = mrc.read(h2p).astype(np.float32)
+                ref_halves = (h1, h2)
                 _, curve = fsc_mod.fsc(torch.as_tensor(h1), torch.as_tensor(h2))
                 fsc_curve = curve.numpy()
             hist_p = maps_dir / f"{stem}_history.json"
@@ -459,6 +630,17 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
             start = it + 1
             logger.info("resuming at iteration %d", start)
             break
+    scope = dict(voltage_kv=float(params["scope_voltage"]),
+                 cs_mm=float(params["scope_cs"]))
+    bt0 = (float(params.get("scope_beam_tilt_x") or 0.0),
+           float(params.get("scope_beam_tilt_y") or 0.0))
+    if any(bt0):
+        # calibrated microscope beam tilt: correct the working stack up
+        # front; refine_beamtilt can still estimate the residual later
+        stack = _map_stack(lambda x: refine3d.correct_beam_tilt(
+            x, bt0[0], bt0[1], pixel, **scope), stack, dev)
+        logger.info("applied calibrated beam tilt (%.3f, %.3f) mRad", *bt0)
+    beam_tilt_done = False
     for it in range(start, maxiter + 2):
         if (maps_dir / "wait").exists():
             # interactive pause: a `wait` file in maps/ holds the loop
@@ -470,7 +652,32 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
         prev_poses = (table_to_poses(table, pixel)
                       if params.get("plot_per_item", True) else None)
         table, recon, res_a = refinement_iteration(
-            stack, table, ref, params, it, fsc_curve=fsc_curve, device=dev)
+            stack, table, ref, params, it, fsc_curve=fsc_curve,
+            ref_halves=ref_halves, device=dev)
+        ref_halves = (recon.half1, recon.half2)
+        if params.get("refine_beamtilt") and not beam_tilt_done and it > start:
+            # one-shot dataset beam-tilt estimate once poses are warm
+            rhref = float(param(params["refine_rhref"], it))
+            tx, ty = refine3d.estimate_beam_tilt(
+                as_f32(stack, dev), as_f32(table_to_ctf_params(table), dev),
+                volume_to_fourier(recon.volume),
+                as_f32(table_to_poses(table, pixel), dev), stack.shape[-1],
+                pixel, amplitude_contrast=float(params["scope_wgh"]),
+                low_res=float(params.get("refine_beamtilt_rlref") or 20.0),
+                high_res=max(rhref, 2.5 * pixel,
+                             float(params.get("refine_beamtilt_rhref")
+                                   or 4.0)), **scope)
+            tx, ty = float(tx), float(ty)
+            stack = _map_stack(lambda x: refine3d.correct_beam_tilt(
+                x, tx, ty, pixel, **scope), stack, dev)
+            table["beam_tilt_x"] = np.full(table.n_rows, tx)
+            table["beam_tilt_y"] = np.full(table.n_rows, ty)
+            beam_tilt_done = True
+            logger.info("beam tilt: (%.2e, %.2e) rad estimated and corrected",
+                        tx, ty)
+        if params.get("refine_fdef") and it > start:
+            table = _refine_defocus_table(stack, table, recon.volume, params,
+                                          it, pixel, dev)
         fsc_curve = _np(recon.fsc)
         ref = recon.volume
         mrc.write(_np(ref).astype(np.float32), maps_dir / f"{stem}_{it:02d}.mrc",

@@ -1,5 +1,6 @@
-"""Synthetic SPA dataset and ground-truth scoring — the torch port of the
-dataset maker and validation of tools/benchmark_e2e_spa.py.
+"""Synthetic SPA dataset, the refine protocols run on it, and ground-truth
+scoring — the torch port of the dataset maker and validation of
+tools/benchmark_e2e_spa.py.
 
 The phantom is a masked, low-passed random volume; particles are
 CTF-modulated central slices at random poses (uniform on the sphere),
@@ -33,6 +34,18 @@ REFINE_ARGS = [
     "refine", "-refine_engine", "gather", "-refine_maxiter", "3",
     "-refine_rhref", "12:10:8:7", "-refine_dang", "7.5",
     "-refine_psi_step", "5", "-refine_searchx", "6", "-refine_rlref", "50",
+    "-particle_sym", "C1", "-refine_goldstandard", "-no_plot_per_item",
+    "-scope_pixel", "1.0",
+]
+# The reference protocol itself (tools/benchmark_e2e_spa.py:137-153,
+# docs/BENCH_E2E.md:131-135): the FRM engine with gold-standard half banks,
+# iterations 2 (global) to 5 (local, final: sub-lattice polish and a
+# full-size reconstruction) at rhref 12, 10, 8, 7 Å.
+FRM_ARGS = [
+    "refine", "-refine_engine", "frm", "-refine_maxiter", "4",
+    "-refine_rhref", "12:10:8:7:6:5", "-refine_dang", "7.5",
+    "-refine_psi_step", "5", "-refine_searchx", "6", "-refine_rlref", "50",
+    "-refine_frm_cone", "15", "-refine_frm_wiener", "0.1",
     "-particle_sym", "C1", "-refine_goldstandard", "-no_plot_per_item",
     "-scope_pixel", "1.0",
 ]

@@ -1,22 +1,27 @@
-"""Where the time goes in the gather-engine refinement loop on one CUDA card.
+"""Where the time goes in the refinement loop on one CUDA card, per engine.
 
     python -m pyp_tpu_torch.tools.profile_refine [--out DIR] [--trace 2,3]
 
 Synthesises the slice's dataset (`e2e_spa.SLICE`: 4,096 particles, box
-128), then runs the `refine` mode through `pyp_tpu_torch.cli.main` four
-times in one project and prints one JSON line per run:
+128), then, for each engine in turn (the FRM protocol `e2e_spa.FRM_ARGS`,
+then the gather protocol `e2e_spa.REFINE_ARGS`), runs the
+`refine` mode through `pyp_tpu_torch.cli.main` four times in one project
+and prints one JSON line per run:
 
   warm      the first run (first-call costs included), wall per iteration;
   steady    the same run again, wall per iteration;
-  layers    each layer (global_search, shift_scored_match, local_refine,
-            accumulate, finalize) timed between two synchronises and summed
-            per iteration — the synchronises themselves add a little;
+  layers    each layer timed between two synchronises and summed per
+            iteration — the synchronises themselves add a little. FRM:
+            _bank_tables (bank build), _restore_polar (polar restore),
+            _match_core (match), _refine_shifts, local_refine (the final
+            polish); gather: global_search, shift_scored_match,
+            local_refine; both: accumulate, finalize;
   profiled  torch.profiler over the iterations in --trace: device busy time
             (the summed self time of the device's kernels and copies), its
             share of the traced wall and of the steady run's untraced wall
             (the profiler slows the host several-fold, so the first share
             understates how busy the card is), and the top kernels. The
-            full tables go to DIR/profile_iter<N>.txt.
+            full tables go to DIR/<engine>/profile_iter<N>.txt.
 
 The card's name and power limit (nvidia-smi) head the output. Needs a CUDA
 card; there is no CPU mode.
@@ -37,13 +42,16 @@ from pathlib import Path
 import torch
 
 from pyp_tpu_torch import cli
-from pyp_tpu_torch.ops import reconstruct, refine3d
+from pyp_tpu_torch.ops import frm, reconstruct, refine3d
 from pyp_tpu_torch.pipeline import refine as ref_pipe
 from pyp_tpu_torch.tools import e2e_spa
 
-LAYERS = ((refine3d, "global_search"), (refine3d, "shift_scored_match"),
+LAYERS = ((frm, "_bank_tables"), (frm, "_restore_polar"),
+          (frm, "_match_core"), (frm, "_refine_shifts"),
+          (refine3d, "global_search"), (refine3d, "shift_scored_match"),
           (refine3d, "local_refine"), (reconstruct, "accumulate"),
           (reconstruct, "finalize"))
+PROTOCOLS = {"frm": e2e_spa.FRM_ARGS, "gather": e2e_spa.REFINE_ARGS}
 
 
 def _sync(dev):
@@ -161,7 +169,8 @@ def main(argv=None):
         raise SystemExit("profile_refine needs a CUDA card "
                          "(torch.cuda.is_available() is False)")
     out_dir = Path(args.out).resolve()
-    out_dir.mkdir(parents=True, exist_ok=True)
+    for engine in PROTOCOLS:
+        (out_dir / engine).mkdir(parents=True, exist_ok=True)
     trace = tuple(int(x) for x in args.trace.split(",") if x)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -178,20 +187,22 @@ def main(argv=None):
         e2e_spa.write_project(work, data, init, pixel=slice_["pixel"])
         os.chdir(work)
         try:
-            for name, kw in (("warm", {}), ("steady", {}),
-                             ("layers", {"layers": True}),
-                             ("profiled", {"trace": trace})):
-                rows = drive(e2e_spa.REFINE_ARGS, "cuda", out_dir=out_dir,
-                             header=smi, **kw)
-                if name == "steady":
-                    steady = rows
-                for it, row in rows.items():
-                    if "profile" in row:
-                        row["profile"]["busy_share_untraced"] = (
-                            row["profile"]["device_busy_s"]
-                            / steady[it]["wall_s"])
-                print(json.dumps({"run": name, "nvidia_smi": smi,
-                                  "iterations": rows}), flush=True)
+            for engine, argv_e in PROTOCOLS.items():
+                for name, kw in (("warm", {}), ("steady", {}),
+                                 ("layers", {"layers": True}),
+                                 ("profiled", {"trace": trace})):
+                    rows = drive(argv_e, "cuda",
+                                 out_dir=out_dir / engine, header=smi, **kw)
+                    if name == "steady":
+                        steady = rows
+                    for it, row in rows.items():
+                        if "profile" in row:
+                            row["profile"]["busy_share_untraced"] = (
+                                row["profile"]["device_busy_s"]
+                                / steady[it]["wall_s"])
+                    print(json.dumps({"engine": engine, "run": name,
+                                      "nvidia_smi": smi, "iterations": rows}),
+                          flush=True)
         finally:
             os.chdir(cwd)
 

@@ -1,8 +1,10 @@
 """The port's CUDA path against its own CPU path, module by module: every
-layer of the gather-engine slice (global search through the CUDA kernel,
-the autograd polish, insertion with atomics, the refine loop) gives on a
-card what the CPU path, held to the JAX package by the other
-test_torch_* files, gives on the same seeded inputs.
+layer of the refinement slice (global search through the CUDA kernel,
+the autograd polish, insertion with atomics, the FRM engine with either
+polar sampler, the reference auto-mask, per-particle defocus, the refine
+loop with either engine) gives on a card what the CPU path, held to the
+JAX package by the other test_torch_* files, gives on the same seeded
+inputs.
 
 All tests here need a card and no JAX; on a CUDA machine they run with
 
@@ -13,7 +15,13 @@ Tolerances (box 32, 2 Å/px, 24 particles): global_search candidates the
 same on >= 95% of (particle, k) slots, top scores within 1e-4; local
 polish >= 95% of particles within 0.05° and 0.01 px; maps atol 1e-4 *
 max|map| and FSC atol 1e-3 (insertion sums in another order on the card);
-one refine_loop iteration >= 90% of poses within 1° and map cc >= 0.99.
+one refine_loop iteration >= 90% of poses within 1° and map cc >= 0.99;
+frm_refine >= 90% of poses equal to 1e-3 (° and px) and their scores
+within 1e-4 (the match rounds its inputs to bfloat16, so a last-bit
+difference between the devices' FFTs can move a near-tie); auto_mask
+within 1e-5 with the same binary core; refine_defocus within 0.5 Å,
+scores within 1e-5; one FRM iteration with half banks and the polish
+>= 90% of poses within 1° and map cc >= 0.99.
 """
 
 import numpy as np
@@ -23,7 +31,7 @@ import torch
 from pyp_tpu.config import schema
 from pyp_tpu.io import cistem
 from pyp_tpu_torch.ops import fourier_slice as fs
-from pyp_tpu_torch.ops import kernels
+from pyp_tpu_torch.ops import frm, kernels
 from pyp_tpu_torch.ops import reconstruct as rec
 from pyp_tpu_torch.ops import refine3d as r3
 from pyp_tpu_torch.pipeline import refine as ref_pipe
@@ -153,4 +161,86 @@ def test_refine_loop(data, tmp_path):
         "phi": th["phi"], "theta": th["theta"], "psi": th["psi"]})
     assert np.mean(rc < 1.0) >= 0.9, rc
     cc = np.corrcoef(mc.cpu().numpy().ravel(), mh.numpy().ravel())[0, 1]
+    assert cc >= 0.99, cc
+
+
+FRM_CFG = dict(low_res=30.0, high_res=6.0, angular_step=11.0,
+               shift_extent=3.0, shift_step=0.5)
+
+
+@pytest.mark.parametrize("mode,local", [("matmul", False), ("gather", False),
+                                        ("matmul", True)])
+def test_frm_refine(data, monkeypatch, mode, local):
+    monkeypatch.setenv("PYP_TPU_FRM_POLAR", mode)
+    init = truth_poses(data) + 2.0 if local else None
+
+    def run(dev):
+        cfg = frm.FrmConfig(N, PIXEL, device=dev, **FRM_CFG)
+        assert cfg.polar_gather == (mode == "gather")
+        return frm.frm_refine(
+            data["stack"], data["ctf_params"],
+            fs.volume_to_fourier(on(data["volume"], dev)), cfg,
+            init_poses=init, prior_cone_deg=10.0 if local else None)
+
+    p, s = (x.cpu().numpy() for x in run("cuda"))
+    ref_p, ref_s = (x.numpy() for x in run("cpu"))
+    same = np.all(np.abs(p - ref_p) < 1e-3, axis=1)
+    assert same.mean() >= 0.9, p - ref_p
+    np.testing.assert_allclose(s[same], ref_s[same], atol=1e-4)
+
+
+def test_auto_mask(data):
+    from pyp_tpu_torch.postprocess.core import auto_mask
+
+    m = auto_mask(on(data["volume"], "cuda"), pixel_size=PIXEL).cpu().numpy()
+    ref = auto_mask(on(data["volume"], "cpu"), pixel_size=PIXEL).numpy()
+    np.testing.assert_allclose(m, ref, atol=1e-5)
+    np.testing.assert_array_equal(m > 0.99, ref > 0.99)
+
+
+def test_refine_defocus(data):
+    wrong = data["ctf_params"].copy()
+    wrong[:, :2] += np.random.RandomState(7).uniform(-300, 300, (24, 1))
+    pts = r3.make_mask_points(N, PIXEL, 100.0, 2.2 * PIXEL)
+
+    def run(dev):
+        return r3.refine_defocus(
+            on(data["stack"], dev), on(wrong, dev),
+            fs.volume_to_fourier(on(data["volume"], dev)),
+            on(truth_poses(data), dev), on(pts, dev), N, PIXEL)
+
+    cp, s = (x.cpu().numpy() for x in run("cuda"))
+    ref_cp, ref_s = (x.numpy() for x in run("cpu"))
+    np.testing.assert_allclose(cp, ref_cp, atol=0.5)
+    np.testing.assert_allclose(s, ref_s, atol=1e-5)
+
+
+def test_frm_iteration_with_half_banks(data, tmp_path):
+    """One final FRM iteration in local mode with gold-standard half maps:
+    each half's rows matched against its own bank, then polished."""
+    init = e2e_spa.starting_map(data["volume"], PIXEL, 12.0)
+    halves = (init, e2e_spa.starting_map(data["volume"], PIXEL, 10.0))
+    params = schema.defaults()
+    params.update({
+        "scope_pixel": PIXEL, "refine_engine": "frm", "refine_maxiter": 1,
+        "refine_rhref": "8", "refine_dang": "12", "refine_searchx": 3.0,
+        "refine_rlref": 100.0, "refine_goldstandard": True,
+        "refine_frm_cone": 15.0, "plot_per_item": False,
+    })
+    e2e_spa.write_project(tmp_path, data, init, pixel=PIXEL)
+    table = cistem.read_parameters(tmp_path / "stack.cistem")
+    tp = truth_poses(data)
+    for i, k in enumerate(("phi", "theta", "psi")):
+        table[k] = tp[:, i] + 3.0
+    table["y_shift"] = tp[:, 3] * PIXEL
+    table["x_shift"] = tp[:, 4] * PIXEL
+    outs = {dev: ref_pipe.refinement_iteration(
+        data["stack"], table.copy(), init, dict(params), 2,
+        ref_halves=halves, device=dev) for dev in ("cuda", "cpu")}
+    (tc, rc, _), (th, rh, _) = outs["cuda"], outs["cpu"]
+    err = e2e_spa.angular_error_deg(tc["phi"], tc["theta"], tc["psi"], {
+        "phi": th["phi"], "theta": th["theta"], "psi": th["psi"]})
+    assert np.mean(err < 1.0) >= 0.9, err
+    cc = np.corrcoef(rc.volume.cpu().numpy().ravel(),
+                     rh.volume.numpy().ravel())[0, 1]
     assert cc >= 0.99, cc

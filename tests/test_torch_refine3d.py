@@ -12,7 +12,13 @@ Tolerances:
     and 0.01 px (24 momentum steps amplify last-bit differences only a
     little, since every step uses the normalized gradient);
   * refine_batch end to end: >= 90% of particles within 0.5° and 0.05 px,
-    and on those, scores (100 * NCC) within 0.5.
+    and on those, scores (100 * NCC) within 0.5;
+  * refine_defocus: defocus within 0.5 Å, scores within 1e-5; and the
+    recovery bar of tests/test_refine3d.py (mean error cut by 40%);
+  * beam tilt: the phase field within 1e-5 x its max; estimated tilts
+    within 1e-3 x the planted tilt (1e-7 rad at zero tilt); corrected
+    images within 1e-5 x the max; and the recovery bars of
+    tests/test_refine3d.py (30% of the planted tilt).
 """
 
 import jax.numpy as jnp
@@ -167,3 +173,81 @@ class TestRefineBatch:
         # the search recovers the truth, as the JAX package's test asserts
         true_p = np.stack([truth["phi"], truth["theta"], truth["psi"]], 1)
         assert np.median(rot_diff_deg(p, true_p)) < 8.0
+
+
+def _truth_poses(truth):
+    return np.stack([truth["phi"], truth["theta"], truth["psi"],
+                     -truth["shifts"][:, 0], -truth["shifts"][:, 1]],
+                    1).astype(np.float32)
+
+
+class TestRefineDefocus:
+    def test_same_as_jax_and_recovers(self, problem):
+        vol, imgs, cp, truth = problem
+        derr = np.random.RandomState(11).uniform(-400, 400, 12).astype(np.float32)
+        wrong = cp.copy()
+        wrong[:, 0] += derr
+        wrong[:, 1] += derr
+        poses = _truth_poses(truth)
+        pts = jr.make_mask_points(N, PIXEL, 100.0, 2.2 * PIXEL)
+        ref_cp, ref_s = jr.refine_defocus(
+            jnp.asarray(imgs), jnp.asarray(wrong),
+            jfs.volume_to_fourier(jnp.asarray(vol)), jnp.asarray(poses),
+            jnp.asarray(pts), N, PIXEL, search_range=600.0)
+        out_cp, out_s = tr.refine_defocus(
+            t(imgs), t(wrong), tfs.volume_to_fourier(t(vol)), t(poses), t(pts),
+            N, PIXEL, search_range=600.0)
+        np.testing.assert_allclose(out_cp.numpy(), np.asarray(ref_cp), atol=0.5)
+        np.testing.assert_allclose(out_s.numpy(), np.asarray(ref_s), atol=1e-5)
+        err_after = np.abs(out_cp.numpy()[:, 0] - cp[:, 0]).mean()
+        assert err_after < 0.6 * np.abs(derr).mean(), err_after
+
+
+class TestBeamTilt:
+    T_TRUE = (4e-4, -2.5e-4)
+
+    @pytest.fixture(scope="class")
+    def tilted(self):
+        vol = make_volume()
+        stack, cp, truth = make_particles(vol, n_particles=24, noise=0.05,
+                                          shift_max=0.0)
+        poses = np.stack([truth["phi"], truth["theta"], truth["psi"],
+                          truth["shifts"][:, 0], truth["shifts"][:, 1]],
+                         1).astype(np.float32)
+        ph = jr.beam_tilt_phase(N, PIXEL, *self.T_TRUE)
+        X = jfs.image_to_fourier(stack)
+        tilted = np.array(jfs.fourier_to_image(
+            X * (jnp.cos(ph) + 1j * jnp.sin(ph)), N))
+        return vol, np.array(stack), tilted, np.array(cp), poses
+
+    def test_phase(self):
+        ref = np.asarray(jr.beam_tilt_phase(N, PIXEL, 3e-4, -1e-4, 200.0, 2.0))
+        out = tr.beam_tilt_phase(N, PIXEL, 3e-4, -1e-4, 200.0, 2.0).numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max())
+
+    @pytest.mark.parametrize("planted", [True, False])
+    def test_estimate_same_as_jax(self, tilted, planted):
+        vol, stack, tilt_stack, cp, poses = tilted
+        imgs = tilt_stack if planted else stack
+        kw = dict(low_res=40.0, high_res=2.5 * PIXEL)
+        ref = jr.estimate_beam_tilt(jnp.asarray(imgs), jnp.asarray(cp),
+                                    jfs.volume_to_fourier(jnp.asarray(vol)),
+                                    jnp.asarray(poses), N, PIXEL, **kw)
+        out = tr.estimate_beam_tilt(t(imgs), t(cp),
+                                    tfs.volume_to_fourier(t(vol)), t(poses),
+                                    N, PIXEL, batch=10, **kw)
+        tol = 1e-3 * abs(self.T_TRUE[0]) if planted else 1e-7
+        np.testing.assert_allclose([float(v) for v in out],
+                                   [float(v) for v in ref], atol=tol)
+        if planted:
+            for got, want in zip(out, self.T_TRUE):
+                assert abs(float(got) - want) < 0.3 * abs(want), (out, want)
+        else:
+            assert max(abs(float(v)) for v in out) < 1e-4
+
+    def test_correct(self, tilted):
+        _, stack, tilt_stack, _, _ = tilted
+        ref = np.asarray(jr.correct_beam_tilt(tilt_stack, *self.T_TRUE, PIXEL))
+        out = tr.correct_beam_tilt(t(tilt_stack), *self.T_TRUE, PIXEL).numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-5 * np.abs(ref).max())
+        assert np.abs(out - stack).mean() < 0.5 * np.abs(tilt_stack - stack).mean()

@@ -1,15 +1,22 @@
 """The ported slice end to end: pyp_tpu_torch.pipeline.refine.refine_loop
-against pyp_tpu.pipeline.refine.refine_loop with refine_engine=gather, on
-the CPU (48 particles, box 32, 2 Å per pixel, refine_maxiter 2: one global
-and one local iteration).
+against pyp_tpu.pipeline.refine.refine_loop on the CPU (48 particles, box
+32, 2 Å per pixel, refine_maxiter 2: one global and one local iteration),
+with refine_engine=gather and with refine_engine=frm. The FRM runs use the
+gold standard, so iteration 3 matches each half against its own half-map
+bank and ends with the sub-lattice polish (the final iteration); one more
+FRM loop adds per-particle defocus refinement, reference auto-masking and
+both beam-tilt steps.
 
 The JAX side runs its single-device path (PYP_TPU_DISABLE_SPMD=1), which
 is the one the port mirrors. Tolerances: >= 90% of final poses within 1°
 of each other; final maps Pearson cc >= 0.99; FSC(0.143) resolutions
-within one Fourier shell. Also: both packages write the same maps/ files,
-the port resumes from maps/ the JAX package wrote, the CLI entry point
-runs and refuses what is not ported, and importing the port's CLI and
-pipeline loads no jax."""
+within one Fourier shell; refined defocus within 5 Å; estimated beam tilt
+within 5% of the JAX estimate (the estimator reads the iteration's map and
+poses, and amplifies their last-digit differences: fed the same inputs the
+two agree to 1e-3, tests/test_torch_refine3d.py). Also: both packages write the
+same maps/ files, the port resumes from maps/ the JAX package wrote, the
+CLI entry point runs and refuses what is not ported, and importing the
+port's CLI and pipeline loads no jax."""
 
 import json
 import subprocess
@@ -38,6 +45,17 @@ def rot(table):
                                         for k in ("phi", "theta", "psi"))))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads for this file's torch ops: several test
+    workers share the machine's cores, and a thread per core in each of
+    them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def problem():
     vol = make_volume(seed=2)
@@ -61,10 +79,15 @@ def problem():
     return np.array(imgs), table, start, params
 
 
-@pytest.fixture(scope="module")
-def runs(problem, tmp_path_factory):
+FRM = {"refine_engine": "frm", "refine_dang": "12", "refine_frm_cone": 15.0}
+FRM_EXTRAS = {"refine_fdef": True, "refine_masking_method": "auto",
+              "refine_beamtilt": True, "scope_beam_tilt_x": 2e-4}
+
+
+def _both_loops(problem, tmp_path_factory, extra=None):
     """One JAX and one port refine_loop over the same inputs."""
     stack, table, start, params = problem
+    params = {**params, **(extra or {})}
     mp = pytest.MonkeyPatch()
     mp.setenv("PYP_TPU_DISABLE_SPMD", "1")
     try:
@@ -79,7 +102,22 @@ def runs(problem, tmp_path_factory):
     return jdir, jout, tdir, tout
 
 
-def test_same_poses(runs):
+@pytest.fixture(scope="module")
+def runs(problem, tmp_path_factory):
+    return _both_loops(problem, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def frm_runs(problem, tmp_path_factory):
+    return _both_loops(problem, tmp_path_factory, FRM)
+
+
+@pytest.fixture(scope="module")
+def frm_extra_runs(problem, tmp_path_factory):
+    return _both_loops(problem, tmp_path_factory, {**FRM, **FRM_EXTRAS})
+
+
+def _assert_same_poses(runs):
     _, (jt, _, _), _, (tt, _, _) = runs
     tr_ = np.einsum("bij,bij->b", rot(jt), rot(tt))
     diff = np.degrees(np.arccos(np.clip((tr_ - 1) / 2, -1, 1)))
@@ -88,7 +126,7 @@ def test_same_poses(runs):
     assert np.median(sh) < 0.05 * PIXEL, sh
 
 
-def test_same_map_and_resolution(runs):
+def _assert_same_map_and_resolution(runs):
     jdir, (_, jmap, jhist), tdir, (_, tmap, thist) = runs
     jmap = np.asarray(jmap).ravel()
     tmap = tmap.numpy().ravel()
@@ -100,7 +138,39 @@ def test_same_map_and_resolution(runs):
         assert set(jh) == set(th)
 
 
+def test_same_poses(runs):
+    _assert_same_poses(runs)
+
+
+def test_same_map_and_resolution(runs):
+    _assert_same_map_and_resolution(runs)
+
+
+@pytest.mark.parametrize("which", ["frm", "frm_extras"])
+def test_frm_same_poses_map_and_resolution(frm_runs, frm_extra_runs, which):
+    r = frm_runs if which == "frm" else frm_extra_runs
+    _assert_same_poses(r)
+    _assert_same_map_and_resolution(r)
+    _assert_same_files(r)
+
+
+def test_frm_extras_same_defocus_and_beam_tilt(frm_extra_runs):
+    _, (jt, _, _), _, (tt, _, _) = frm_extra_runs
+    np.testing.assert_allclose(np.asarray(tt["defocus_1"]),
+                               np.asarray(jt["defocus_1"]), atol=5.0)
+    d_off = np.asarray(tt["defocus_1"]) - np.asarray(tt["defocus_2"])
+    np.testing.assert_allclose(d_off, np.asarray(jt["defocus_1"])
+                               - np.asarray(jt["defocus_2"]), atol=1e-2)
+    tx_j, tx_t = float(jt["beam_tilt_x"][0]), float(tt["beam_tilt_x"][0])
+    assert tx_j != 0.0
+    assert abs(tx_t - tx_j) <= 0.05 * abs(tx_j), (tx_t, tx_j)
+
+
 def test_same_files(runs):
+    _assert_same_files(runs)
+
+
+def _assert_same_files(runs):
     jdir, _, tdir, _ = runs
     names = sorted(p.name for p in (jdir / "maps").iterdir())
     assert names == sorted(p.name for p in (tdir / "maps").iterdir())
@@ -110,11 +180,15 @@ def test_same_files(runs):
     assert a.shape == b.shape == (N, N, N) and a.dtype == b.dtype
 
 
-def test_port_resumes_from_jax_maps(problem, runs, tmp_path):
+@pytest.mark.parametrize("engine", ["gather", "frm"])
+def test_port_resumes_from_jax_maps(problem, runs, frm_runs, tmp_path, engine):
     """The port picks up after the JAX package's iteration 2 and runs only
-    iteration 3, from the JAX package's map, table and half maps."""
+    iteration 3, from the JAX package's map, table and half maps (with FRM
+    and the gold standard, iteration 3 matches against those half maps)."""
     stack, table, start, params = problem
-    jdir, _, _, _ = runs
+    if engine == "frm":
+        params = {**params, **FRM}
+    jdir, _, _, _ = runs if engine == "gather" else frm_runs
     (tmp_path / "maps").mkdir()
     for p in (jdir / "maps").glob("ds_r01_02*"):
         (tmp_path / "maps" / p.name).write_bytes(p.read_bytes())
@@ -136,25 +210,31 @@ def test_cli_refine_and_unported(problem, tmp_path, monkeypatch):
 
     stack, table, start, _ = problem
     monkeypatch.chdir(tmp_path)
-    mrc.write(stack, "stack.mrc", pixel_size=PIXEL)
-    cistem.write_parameters(table, "stack.cistem")
-    mrc.write(start.astype(np.float32), "initial_model.mrc", pixel_size=PIXEL)
     assert cli.main(["spr"], device="cpu") == 2
-    with pytest.raises(NotImplementedError, match="FRM engine is ported in a later PR"):
-        cli.main(["refine", "-refine_engine", "frm"], device="cpu")
-    rc = cli.main(["refine", "-refine_engine", "gather", "-refine_maxiter", "1",
-                   "-refine_rhref", "8", "-refine_dang", "20", "-refine_psi_step", "15",
-                   "-refine_searchx", "2", "-scope_pixel", str(PIXEL),
-                   "-no_plot_per_item"], device="cpu")
-    assert rc == 0
-    assert (tmp_path / "maps" / "dataset_r01_02.mrc").exists()
-    with pytest.raises(NotImplementedError, match="refine_fdef"):
-        cli.main(["refine", "-refine_engine", "gather", "-refine_fdef"], device="cpu")
+    for engine in ("frm", "gather"):
+        # one project directory per engine: a refine run resumes after
+        # the iterations it finds in maps/
+        work = tmp_path / engine
+        work.mkdir()
+        monkeypatch.chdir(work)
+        mrc.write(stack, "stack.mrc", pixel_size=PIXEL)
+        cistem.write_parameters(table, "stack.cistem")
+        mrc.write(start.astype(np.float32), "initial_model.mrc", pixel_size=PIXEL)
+        rc = cli.main(["refine", "-refine_engine", engine, "-refine_maxiter", "1",
+                       "-refine_rhref", "8", "-refine_dang", "20",
+                       "-refine_psi_step", "15", "-refine_searchx", "2",
+                       "-scope_pixel", str(PIXEL), "-no_plot_per_item"],
+                      device="cpu")
+        assert rc == 0
+        assert (work / "maps" / "dataset_r01_02.mrc").exists()
+    with pytest.raises(NotImplementedError, match="reconstruct_lblur"):
+        cli.main(["refine", "-refine_engine", "gather", "-reconstruct_lblur"],
+                 device="cpu")
 
 
-@pytest.mark.parametrize("key,value", [("refine_beamtilt", True),
+@pytest.mark.parametrize("key,value", [("reconstruct_lblur", True),
                                        ("reconstruct_iewald", 1),
-                                       ("refine_masking_method", "auto"),
+                                       ("refine_fmatch", True),
                                        ("reconstruct_minscore", 0.2)])
 def test_unported_features_raise(problem, key, value):
     *_, params = problem
@@ -165,6 +245,7 @@ def test_unported_features_raise(problem, key, value):
 def test_cli_imports_no_jax():
     code = ("import sys; import pyp_tpu_torch.cli, pyp_tpu_torch.pipeline.refine; "
             "import pyp_tpu_torch.state, pyp_tpu_torch.tools.e2e_spa; "
+            "import pyp_tpu_torch.ops.frm, pyp_tpu_torch.postprocess.core; "
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)

@@ -35,16 +35,21 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# global-search shapes at the slice's size: 256 particles x 72 psi rows,
-# mask points of the 50-12 Å band at box 128 / 1 Å, 7.5° directions,
-# +-6 px shifts at 2 px
+# (name, A, G, D, S, seed); the last is the global search at the slice's
+# size: 256 particles x 72 psi rows, mask points of the 50-12 Å band at
+# box 128 / 1 Å, 7.5° directions, +-6 px shifts at 2 px
 KERNEL_CASES = [
     ("test_pallas_kernels[0]", 40, 200, 50, 9, 0),
     ("test_pallas_kernels[1]", 13, 37, 5, 3, 1),
     ("test_pallas_kernels[2]", 40, 200, 50, 1, 2),
+    ("shift_chunks", 300, 64, 40, 49, 4),   # S > 32: two chunks of 25
+    ("ragged", 1000, 37, 13, 7, 5),         # G % 4 != 0, D % 8 != 0
     ("slice", 256 * 72, 168, 732, 29, 3),
 ]
 RTOL, ATOL_REL, MAX_IDX_DISAGREE = 2e-5, 2e-4, 0.01
+# the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): dense TF32
+# on the tensor cores, FP32 on the CUDA cores, HBM3 bandwidth
+TF32_FLOPS, FP32_FLOPS, HBM_BYTES_S = 495e12, 67e12, 3.35e12
 
 
 def emit(obj):
@@ -108,6 +113,30 @@ def _median_ms(fn, reps=11):
     return statistics.median(times)
 
 
+def library_call(v, u, E, ninv):
+    """The yardstick (never called by the port): one FP32 SGEMM
+    (A, 2G) x (2G, S*D), TF32 off, with the shift-folded B' built from u
+    and E, then the max over S (`torch.max` returns the first maximum)."""
+    import torch
+
+    w = E[:, :, None] * u[:, None, :]                      # (G, S, D)
+    bk = torch.cat([w.real, -w.imag]).flatten(1)           # (2G, S*D)
+    num = torch.cat([v.real, v.imag], 1) @ bk              # (A, S*D)
+    best, idx = (num.view(len(v), E.shape[1], -1) * ninv[:, None]).max(1)
+    return best, idx.to(torch.int32)
+
+
+def bounds_ms(A, G, D, S):
+    """(3xTF32 bound, FP32 bound, memory bound) in ms: the function's
+    4*A*D*S*G FLOP three times over at the TF32 tensor-core peak, once at
+    the FP32 peak, and its bytes (v, u, E, ninv read once; score and sidx
+    written once) at the HBM rate."""
+    flop = 4.0 * A * D * S * G
+    nbytes = 8 * (A * G + G * D + G * S) + 4 * A * D + 8 * A * D
+    return (1e3 * 3 * flop / TF32_FLOPS, 1e3 * flop / FP32_FLOPS,
+            1e3 * nbytes / HBM_BYTES_S)
+
+
 def phase_kernel():
     import torch
 
@@ -126,19 +155,38 @@ def phase_kernel():
         ok = bool(torch.allclose(score, ref_score, rtol=RTOL,
                                  atol=ATOL_REL * scale))
         disagree = float((sidx != ref_idx).float().mean())
+        if S == 1:
+            ok = ok and bool((sidx == 0).all())
         row = {"phase": "kernel", "case": name, "A": A, "G": G, "D": D,
                "S": S, "max_abs_err": err, "max_abs_score": scale,
                "idx_disagree": disagree,
-               "ms": _median_ms(lambda: kernels.shift_scored_match(*args)),
-               "plain_ms": _median_ms(
-                   lambda: kernels.shift_scored_match_plain(*args)),
                "ok": ok and disagree < MAX_IDX_DISAGREE}
+        if name == "slice":
+            tf32x3, fp32, mem = bounds_ms(A, G, D, S)
+            operands = kernels.kernel_operands(*args[:3])
+            lib_score, _ = library_call(*args)
+            torch.cuda.synchronize()
+            row.update(
+                ms=_median_ms(lambda: kernels.shift_scored_match(*args)),
+                layout_ms=_median_ms(
+                    lambda: kernels.kernel_operands(*args[:3])),
+                kernel_ms=_median_ms(lambda: kernels.launch_kernel(
+                    operands, args[3], S)),
+                plain_ms=_median_ms(
+                    lambda: kernels.shift_scored_match_plain(*args)),
+                library_ms=_median_ms(lambda: library_call(*args)),
+                library_max_abs_err=float((lib_score - ref_score).abs().max()),
+                bound_ms=tf32x3, bound_fp32_ms=fp32, bound_bytes_ms=mem)
+            row.update(tflops=4.0 * A * D * S * G / row["ms"] / 1e9,
+                       share_of_bound=tf32x3 / row["ms"],
+                       kernel_share_of_bound=tf32x3 / row["kernel_ms"],
+                       share_of_fp32_bound=fp32 / row["ms"])
+            slice_row = row
+            del operands
         emit(row)
         if not row["ok"]:
             raise RuntimeError(f"shift_scored_match disagrees with its plain "
                                f"version on case {name}: {row}")
-        if name == "slice":
-            slice_row = row
         del args
     return slice_row
 
@@ -163,7 +211,7 @@ def _drive_protocol(argv, data, init):
     launches during the run)."""
     import torch
 
-    from pyp_tpu.io import cistem, mrc
+    from pyp_tpu_torch.io import cistem, mrc
     from pyp_tpu_torch.ops import kernels
     from pyp_tpu_torch.tools import e2e_spa, profile_refine
     from pyp_tpu_torch.tools.e2e_spa import SLICE
@@ -358,7 +406,9 @@ def main():
         "source": "pyp_tpu_torch/csrc/shift_scored_match.cu",
         "replaces": "pyp_tpu/ops/pallas_kernels.py:80",
         "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]})
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": "operations", "library_ms": k["library_ms"],
+        "bound_fp32_ms": k["bound_fp32_ms"], "tflops": k["tflops"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,18 +2,28 @@
 
 Mirrors `pyp_tpu`'s layout and function names module by module, so each
 function's JAX counterpart is easy to find; `pyp_tpu` stays the reference
-the port is tested against. The package imports `torch` and never `jax`.
-It reuses only the JAX-free layers of `pyp_tpu` (io, config, utils,
-stream.web, cli._project_params).
+the port is tested against. The package imports `torch` and never `jax`,
+and nothing of `pyp_tpu` either: it keeps its own copies of the JAX-free
+layers it needs (`io.mrc`, `io.cistem`, `config`, `utils.log`/`timer`,
+`stream.web`, and `cli`'s project parameters), whose on-disk formats stay
+byte-compatible, so a run resumes across the two packages.
 
 Ported: the SPA gold-standard refinement loop (`pipeline.refine.refine_loop`)
 with both pose-search engines — FRM (`ops.frm`, the default: polar
 matching against a direction bank per half map, then a final sub-lattice
 polish) and gather (whose global search scores through the hand-written
-CUDA kernel `ops.kernels.shift_scored_match`, source in `csrc/`) — with
-reference auto-masking, per-particle defocus and beam-tilt refinement.
+CUDA kernel `ops.kernels.shift_scored_match`, source in `csrc/`: a 3xTF32
+tensor-core GEMM with the shift max as its epilogue) — with reference
+auto-masking, per-particle defocus and beam-tilt refinement. The entry
+points (`cli.main`, `pipeline.refine.refine_loop`,
+`refinement_iteration`) run on the card unless the caller passes
+`device="cpu"`.
 
 Layout:
+  pyp_tpu_torch.config      — parameter schema, CLI flags, project file
+  pyp_tpu_torch.io          — MRC and .cistem codecs
+  pyp_tpu_torch.utils       — logging, timers
+  pyp_tpu_torch.stream      — the web platform's RPC client
   pyp_tpu_torch.core        — geometry, CTF model, FFT crops, filters, FSC
   pyp_tpu_torch.ops         — Fourier-slice operators, FRM, refine3d,
                               reconstruct, the CUDA kernels and their build

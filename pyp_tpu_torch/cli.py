@@ -6,32 +6,83 @@ Reads stack.mrc, stack.cistem and initial_model.mrc (or -model_path) from
 the project directory, like `pyp_tpu refine`, and runs the refinement loop
 with the engine the parameters name (`-refine_engine frm`, the default, or
 `gather`); parameters persist in the same project file
-(.pyp_tpu_config.toml), read through pyp_tpu.cli._project_params. Every
-other mode, SLURM submission and ab initio are not ported yet and exit
-non-zero.
+(.pyp_tpu_config.toml, written and read by `config.params` in the same
+format as the JAX package's). Every other mode, SLURM submission and ab
+initio are not ported yet and exit non-zero.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 from pathlib import Path
 
 import numpy as np
 
-from pyp_tpu.cli import MODES, _project_params
-from pyp_tpu.utils import get_logger
+from pyp_tpu_torch.config import params as cfg
+from pyp_tpu_torch.config.blocks import apply_reference_aliases
+from pyp_tpu_torch.utils import get_logger
 
 logger = get_logger("cli")
+
+# the JAX package's modes; only `refine` is ported
+MODES = ("spr", "tomo", "extract", "refine", "classify2d", "classify3d",
+         "csp", "polish", "postprocess", "import_star", "export_star",
+         "clean", "worker", "params", "gain", "stream", "kselection",
+         "byp", "mine", "mask", "tomoedit", "boxedit", "sprtrain",
+         "tomotrain", "heterogeneity", "sva", "export_session", "filter",
+         "prism", "workflow", "report", "fsc")
+
+
+def _project_params(argv, work_dir=".", persist=True):
+    """The run's parameters: the project file's (a nextPYP
+    `.pyp_config.toml` seeds it on a first run), updated with the flags
+    given in `argv` and saved back, with reference-spelled ids landed on
+    their engine targets. `persist=False` applies the flags without
+    writing the project file."""
+    ref_cfg = Path(work_dir) / ".pyp_config.toml"
+    if ref_cfg.exists() and not (Path(work_dir) / cfg.PROJECT_FILE).exists():
+        ref_params, report = cfg.load_reference_config(ref_cfg)
+        logger.info("imported nextPYP project config: %d loaded / %d "
+                    "tolerated / %d unimplemented / %d unknown",
+                    len(report["loaded"]), len(report["tolerated"]),
+                    len(report["unimplemented"]), len(report["unknown"]))
+        if persist:
+            cfg.save_parameters(ref_params, work_dir)
+    overrides = cfg.parse_arguments(argv)
+    # an argument is explicit iff its flag appears on the command line, so
+    # a saved project value is not overridden by a flag's default
+    given = {a.lstrip("-").split("=")[0] for a in argv if a.startswith("-")}
+    defaults = cfg.defaults()
+    explicit = {
+        k: v for k, v in overrides.items()
+        if k in given or defaults.get(k) != v
+    }
+    if not persist:
+        saved = {**defaults, **(cfg.load_parameters(work_dir) or {})}
+        saved.update(explicit)
+        return apply_reference_aliases(saved)
+    # aliases land AFTER persistence, so the project file keeps the user's
+    # spelling
+    return apply_reference_aliases(cfg.update_parameters(work_dir, explicit))
+
+
+def slurm_requested(params: dict) -> bool:
+    """True where the parameters ask for SLURM submission (a worker,
+    marked by PYP_TPU_WORKER, executes instead)."""
+    if os.environ.get("PYP_TPU_WORKER"):
+        return False
+    return bool(params.get("slurm_queue") or params.get("slurm_host")
+                or params.get("slurm_submit"))
 
 
 def mode_refine(argv, device="cuda"):
     params = _project_params(argv)
-    from pyp_tpu.io import cistem, mrc
-    from pyp_tpu.sched import bridge
+    from pyp_tpu_torch.io import cistem, mrc
     from pyp_tpu_torch.pipeline import refine as ref_pipe
 
-    if bridge.slurm_requested(params):
+    if slurm_requested(params):
         logger.error("SLURM submission of refine is not yet ported")
         return 2
     stack = mrc.read("stack.mrc").astype(np.float32)

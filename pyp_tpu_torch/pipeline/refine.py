@@ -28,20 +28,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pyp_tpu.config.params import param
-from pyp_tpu.io import cistem, mrc
-from pyp_tpu.stream.web import Web
-from pyp_tpu.utils import Timer, get_logger
 from pyp_tpu_torch import as_f32, resolve_device
+from pyp_tpu_torch.config.params import param
 from pyp_tpu_torch.core import fsc as fsc_mod
 from pyp_tpu_torch.core.fft import fourier_crop_3d
 from pyp_tpu_torch.core.filters import normalize_images, soft_circular_mask
 from pyp_tpu_torch.core.geometry import euler_to_matrix
+from pyp_tpu_torch.io import cistem, mrc
 from pyp_tpu_torch.ops import frm
 from pyp_tpu_torch.ops import reconstruct as rec
 from pyp_tpu_torch.ops import refine3d
 from pyp_tpu_torch.ops.fourier_slice import volume_to_fourier
 from pyp_tpu_torch.postprocess.core import auto_mask
+from pyp_tpu_torch.stream.web import Web
+from pyp_tpu_torch.utils import Timer, get_logger
 
 logger = get_logger("refine")
 
@@ -329,7 +329,7 @@ def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
 
 def refinement_iteration(
     stack, table: cistem.Table, ref_volume, params: dict, iteration: int,
-    batch: int = 256, fsc_curve=None, ref_halves=None, device="cpu",
+    batch: int = 256, fsc_curve=None, ref_halves=None, device="cuda",
 ):
     """One iteration on `device`: refine poses in batches of at most
     `batch` particles, then reconstruct half maps + FSC. `stack` is a
@@ -584,7 +584,7 @@ def _refine_defocus_table(stack, table, volume, params, it, pixel, dev):
 
 
 def refine_loop(stack, table, initial_model, params, work_dir=".",
-                dataset="dataset", cls: int = 1, device="cpu"):
+                dataset="dataset", cls: int = 1, device="cuda"):
     """Multi-iteration refinement on `device` with durable per-iteration
     state (maps/<dataset>_r{cls:02d}_{it:02d}.mrc/.cistem, half maps, FSC,
     history JSON), resuming after the latest finished iteration found in

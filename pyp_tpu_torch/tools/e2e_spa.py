@@ -103,7 +103,7 @@ def starting_map(volume, pixel=1.0, resolution=20.0):
 def write_project(work_dir, data, initial_model, pixel=1.0):
     """stack.mrc, stack.cistem (CTF, zero poses) and initial_model.mrc in
     `work_dir`: the inputs of the `refine` mode."""
-    from pyp_tpu.io import cistem, mrc
+    from pyp_tpu_torch.io import cistem, mrc
 
     work_dir = Path(work_dir)
     n = len(data["stack"])

@@ -16,7 +16,7 @@ poses, and amplifies their last-digit differences: fed the same inputs the
 two agree to 1e-3, tests/test_torch_refine3d.py). Also: both packages write the
 same maps/ files, the port resumes from maps/ the JAX package wrote, the
 CLI entry point runs and refuses what is not ported, and importing the
-port's CLI and pipeline loads no jax."""
+port's CLI and pipeline loads neither jax nor the JAX package."""
 
 import json
 import subprocess
@@ -243,10 +243,14 @@ def test_unported_features_raise(problem, key, value):
 
 
 def test_cli_imports_no_jax():
+    """Importing the port's entry points loads neither jax nor any module
+    of the JAX package."""
     code = ("import sys; import pyp_tpu_torch.cli, pyp_tpu_torch.pipeline.refine; "
             "import pyp_tpu_torch.state, pyp_tpu_torch.tools.e2e_spa; "
-            "import pyp_tpu_torch.ops.frm, pyp_tpu_torch.postprocess.core; "
-            "print('jax' in sys.modules)")
+            "import pyp_tpu_torch.tools.profile_refine, pyp_tpu_torch.ops.frm; "
+            "import pyp_tpu_torch.ops.kernels, pyp_tpu_torch.postprocess.core; "
+            "print(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'pyp_tpu.')) or m == 'pyp_tpu'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "False", out.stdout + out.stderr
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr

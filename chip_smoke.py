@@ -10,7 +10,16 @@ against the ground truth:
   frm_slice  the reference's FRM protocol (the default engine, gold-
              standard half banks, final polish), held to the reference's
              quality: FSC(0.143) <= 4.86 Å, masked 10 Å cc vs truth
-             >= 0.94, median angular error < 1°.
+             >= 0.94, median angular error < 1°;
+  frm_options  the same protocol with every reconstruction option of the
+             loop on (final B-factor sharpening, matching projections,
+             model fitting against a pseudo-atom PDB of the truth,
+             likelihood blurring, reference-based Ewald insertion, score
+             shaping), held to its files and the masked cc >= 0.94;
+  postprocess  the `postprocess` (with local resolution), `mask` and
+             `fsc` modes on frm_slice's final half maps, held to a masked
+             FSC no coarser than the unmasked one plus a shell, a negative
+             B and a median local resolution inside [2 px, 20 Å].
 
     python3 chip_smoke.py
 
@@ -204,11 +213,11 @@ def phase_synthesize():
     return data, init
 
 
-def _drive_protocol(argv, data, init):
+def _drive_protocol(argv, data, init, inspect=None):
     """pyp_tpu_torch.cli.main(argv, device="cuda") in a fresh project,
     with each iteration's wall, FSC(0.143) and device memory peak
     recorded. Returns (iterations, final table, final map, wall, kernel
-    launches during the run)."""
+    launches during the run, inspect(maps dir, final stem) or None)."""
     import torch
 
     from pyp_tpu_torch.io import cistem, mrc
@@ -233,13 +242,14 @@ def _drive_protocol(argv, data, init):
         stem = os.path.join(work, "maps", f"dataset_r01_{last:02d}")
         table = cistem.read_parameters(stem + ".cistem")
         final = mrc.read(stem + ".mrc")
+        extra = inspect(os.path.join(work, "maps"), stem) if inspect else None
     for it, row in iters.items():
         emit({"phase": "iteration", "argv": argv[1:3], "iteration": it, **row})
     box = SLICE["box"]
     if final.shape != (box, box, box) or not np.isfinite(final).all():
         raise RuntimeError(f"final map has shape {final.shape} or "
                            "non-finite values")
-    return iters, table, final, wall, launches
+    return iters, table, final, wall, launches, extra
 
 
 def _quality(table, final, data, init):
@@ -261,8 +271,8 @@ def phase_slice(data, init):
     kernel."""
     from pyp_tpu_torch.tools.e2e_spa import REFINE_ARGS, SLICE
 
-    iters, table, final, wall, launches = _drive_protocol(REFINE_ARGS, data,
-                                                          init)
+    iters, table, final, wall, launches, _ = _drive_protocol(
+        REFINE_ARGS, data, init)
     if sorted(iters) != [2, 3, 4]:
         raise RuntimeError(f"expected iterations 2-4, ran {sorted(iters)}")
     row = {"phase": "slice", "seconds": wall, "launches": launches,
@@ -366,8 +376,13 @@ def phase_frm_slice(data, init):
     3-4 local with gold-standard half banks, 5 final with the polish."""
     from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS, SLICE
 
-    iters, table, final, wall, launches = _drive_protocol(FRM_ARGS, data,
-                                                          init)
+    def halves(maps, stem):
+        from pyp_tpu_torch.io import mrc
+
+        return tuple(mrc.read(f"{stem}_{h}.mrc") for h in ("half1", "half2"))
+
+    iters, table, final, wall, launches, final_halves = _drive_protocol(
+        FRM_ARGS, data, init, inspect=halves)
     if sorted(iters) != [2, 3, 4, 5]:
         raise RuntimeError(f"expected iterations 2-5, ran {sorted(iters)}")
     row = {"phase": "frm_slice", "seconds": wall,
@@ -388,6 +403,178 @@ def phase_frm_slice(data, init):
     if not row["median_angular_error_deg"] < FRM_ERR_BAR_DEG:
         raise RuntimeError(f"median angular error {row['median_angular_error_deg']:.3f}° "
                            f"is not under {FRM_ERR_BAR_DEG}°")
+    return final_halves
+
+
+# each iteration's PDB fit of the final map; the pseudo-atom model is the
+# densest 1/32 of the truth's voxels
+MODEL_CC_BAR, OPTIONS_CC_BAR = 0.5, 0.94
+OPTION_FLAGS = ["-reconstruct_fbfact", "-refine_fmatch", "-reconstruct_lblur",
+                "-reconstruct_iewald", "2", "-reconstruct_score_fraction",
+                "0.9"]
+
+
+def phase_frm_options(data, init):
+    """FRM_ARGS with every reconstruction option of the loop on, through
+    cli.main: the final map finite, `_sharp.mrc` written from a negative
+    Guinier B, `_match.mrc` of 4,096 128² projections, one
+    `_model_fit.txt` line per iteration with the last cc >= 0.5, and the
+    final map's masked 10 Å cc vs truth >= 0.94. The final FSC(0.143) is
+    reported without a bar: likelihood blurring blurs by design."""
+    import torch
+
+    from pyp_tpu_torch.analysis.modelfit import model_map_fit
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.io.pdb import read_pdb
+    from pyp_tpu_torch.ops import reconstruct as rec
+    from pyp_tpu_torch.postprocess.core import guinier_bfactor
+    from pyp_tpu_torch.tools import e2e_spa
+    from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS, SLICE
+
+    box, pixel = SLICE["box"], SLICE["pixel"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = e2e_spa.write_pseudo_atom_pdb(data["volume"], pixel,
+                                            box ** 3 // 32,
+                                            os.path.join(tmp, "model.pdb"))
+        model = read_pdb(pdb)
+
+        def outputs(maps, stem):
+            hdr = mrc.read_header(os.path.join(maps, "dataset_match.mrc"))
+            with open(os.path.join(maps, "dataset_model_fit.txt")) as f:
+                fit_lines = [ln.split() for ln in f if ln.strip()]
+            sharp = mrc.read(stem + "_sharp.mrc")
+            return {"match_shape": [hdr.nz, hdr.ny, hdr.nx],
+                    "model_fit": fit_lines,
+                    "sharp_finite": bool(np.isfinite(sharp).all()),
+                    "sharp_differs": bool(np.abs(sharp - mrc.read(stem + ".mrc")
+                                                 ).max() > 0)}
+
+        torch.cuda.reset_peak_memory_stats()
+        iters, table, final, wall, launches, out = _drive_protocol(
+            FRM_ARGS + OPTION_FLAGS + ["-model_fit", pdb], data, init,
+            inspect=outputs)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fit, fit_s = _sync_s(lambda: model_map_fit(
+            model, final, pixel, low_res=50.0, high_res=7.0, device="cuda"))
+    final_t = torch.as_tensor(final).cuda()
+    bfac = guinier_bfactor(final_t, pixel,
+                           max_res=max(iters[5]["fsc143_A"], 2.2 * pixel))
+    # the likelihood-blurred insertion alone: 21 psi offsets over the
+    # whole stack at full size, against the plain insertion
+    poses = np.stack([data["phi"], data["theta"], data["psi"],
+                      -data["shifts"][:, 0], -data["shifts"][:, 1]], 1)
+    rec_kw = dict(batch=256, device="cuda")
+    _, plain_s = _sync_s(lambda: rec.reconstruct(
+        data["stack"], poses, data["ctf_params"], pixel, **rec_kw))
+    _, lblur_s = _sync_s(lambda: rec.reconstruct(
+        data["stack"], poses, data["ctf_params"], pixel, lblur_nrot=21,
+        lblur_range=20.0, **rec_kw))
+    cc_last = float(out["model_fit"][-1][1]) if out["model_fit"] else float("nan")
+    row = {"phase": "frm_options", "seconds": wall,
+           "shift_scored_match_launches": launches,
+           **_quality(table, final, data, init),
+           "final_fsc143_A": iters[max(iters)]["fsc143_A"],
+           "guinier_bfactor_A2": bfac, "match_shape": out["match_shape"],
+           "model_fit_lines": len(out["model_fit"]), "model_cc_last": cc_last,
+           "model_map_fit_s": fit_s, "model_map_fit_cc": fit["cc"],
+           "reconstruct_plain_s": plain_s, "reconstruct_lblur21_s": lblur_s,
+           "max_memory_allocated_GiB": peak}
+    emit(row)
+    if sorted(iters) != [2, 3, 4, 5]:
+        raise RuntimeError(f"expected iterations 2-5, ran {sorted(iters)}")
+    if not (out["sharp_finite"] and out["sharp_differs"]
+            and np.isfinite(bfac) and bfac < 0):
+        raise RuntimeError(f"_sharp.mrc not written from a negative Guinier B "
+                           f"(B {bfac}, {out})")
+    if out["match_shape"] != [SLICE["n_particles"], box, box]:
+        raise RuntimeError(f"_match.mrc holds {out['match_shape']}")
+    if len(out["model_fit"]) != len(iters) or not cc_last >= MODEL_CC_BAR:
+        raise RuntimeError(f"_model_fit.txt has {len(out['model_fit'])} lines "
+                           f"for {len(iters)} iterations, last cc {cc_last}")
+    if not row["cc_final_10A"] >= OPTIONS_CC_BAR:
+        raise RuntimeError(f"cc vs truth {row['cc_final_10A']:.4f} is not "
+                           f">= {OPTIONS_CC_BAR}")
+
+
+LOCRES_MAX_A = 20.0
+
+
+def phase_postprocess(final_halves):
+    """The map modes on frm_slice's final half maps, each through
+    cli.main(..., device="cuda") in one project: postprocess with local
+    resolution, mask, then fsc with that mask. Bars: the corrected masked
+    FSC(0.143) no coarser than the unmasked one plus one Fourier shell, a
+    negative finite B, the median local resolution in [2 px, 20 Å], every
+    output file present."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pyp_tpu_torch import cli
+    from pyp_tpu_torch.core import fsc as fsc_mod
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.postprocess import core as post
+    from pyp_tpu_torch.postprocess import locres
+    from pyp_tpu_torch.tools.e2e_spa import SLICE
+
+    box, pixel = SLICE["box"], SLICE["pixel"]
+    h1, h2 = (torch.as_tensor(h).cuda() for h in final_halves)
+    f0, c0 = fsc_mod.fsc(h1, h2)
+    unmasked_a = float(fsc_mod.resolution_at_threshold(f0, c0, pixel))
+    cwd = os.getcwd()
+    row = {"phase": "postprocess", "unmasked_fsc143_A": unmasked_a}
+
+    def mode(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, s = _sync_s(lambda: cli.main(argv, device="cuda"))
+        if rc != 0:
+            raise RuntimeError(f"cli.main({argv}) returned {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), s
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as work:
+        os.makedirs(os.path.join(work, "maps"))
+        for h, name in zip(final_halves, ("half1", "half2")):
+            mrc.write(h, os.path.join(work, "maps", f"dataset_r01_05_{name}.mrc"),
+                      pixel_size=pixel)
+        os.chdir(work)
+        try:
+            out, row["postprocess_s"] = mode(["postprocess", "-sharpen_locres"])
+            mk, row["mask_s"] = mode(["mask", "-data_set", "dataset"])
+            fs, row["fsc_s"] = mode(["fsc", "maps/dataset_r01_05_half1.mrc",
+                                     "maps/dataset_r01_05_half2.mrc",
+                                     "-fsc_mask", "dataset_mask.mrc"])
+            files = ["maps/dataset_sharpened.mrc", "maps/dataset_fsc_masked.txt",
+                     "maps/dataset_locres.mrc", "maps/dataset_locfilt.mrc",
+                     "dataset_mask.mrc", "fsc.txt"]
+            missing = [f for f in files if not os.path.exists(f)]
+            mask = torch.as_tensor(mrc.read("dataset_mask.mrc")).cuda()
+        finally:
+            os.chdir(cwd)
+    row["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    _, row["masked_fsc_s"] = _sync_s(lambda: post.masked_fsc(h1, h2, mask, pixel))
+    _, row["local_resolution_s"] = _sync_s(lambda: locres.local_resolution(
+        h1, h2, pixel, device="cuda"))
+    row.update(masked_fsc143_A=out["resolution_A"], bfactor_A2=out["bfactor"],
+               locres_median_A=out["locres_median_A"],
+               mask_coverage=mk["coverage"],
+               fsc_mode_masked_fsc143_A=fs["pairs"][0]["res_0.143_A"],
+               missing_files=missing)
+    emit(row)
+    shell = 1.0 / (box * pixel)
+    if not 1.0 / out["resolution_A"] >= 1.0 / unmasked_a - shell:
+        raise RuntimeError(f"masked FSC(0.143) {out['resolution_A']:.3f} Å is "
+                           f"coarser than the unmasked {unmasked_a:.3f} Å "
+                           "plus one shell")
+    if not (np.isfinite(out["bfactor"]) and out["bfactor"] < 0):
+        raise RuntimeError(f"B-factor {out['bfactor']} is not negative")
+    if not 2.0 * pixel <= out["locres_median_A"] <= LOCRES_MAX_A:
+        raise RuntimeError(f"median local resolution {out['locres_median_A']} Å "
+                           f"is outside [{2 * pixel}, {LOCRES_MAX_A}] Å")
+    if missing:
+        raise RuntimeError(f"missing outputs {missing}")
 
 
 def main():
@@ -399,7 +586,9 @@ def main():
     data, init = phase_synthesize()
     launches = phase_slice(data, init)
     phase_frm_polar(data)
-    phase_frm_slice(data, init)
+    final_halves = phase_frm_slice(data, init)
+    phase_frm_options(data, init)
+    phase_postprocess(final_halves)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "shift_scored_match", "route": "cuda",

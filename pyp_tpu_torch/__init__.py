@@ -4,9 +4,10 @@ Mirrors `pyp_tpu`'s layout and function names module by module, so each
 function's JAX counterpart is easy to find; `pyp_tpu` stays the reference
 the port is tested against. The package imports `torch` and never `jax`,
 and nothing of `pyp_tpu` either: it keeps its own copies of the JAX-free
-layers it needs (`io.mrc`, `io.cistem`, `config`, `utils.log`/`timer`,
-`stream.web`, and `cli`'s project parameters), whose on-disk formats stay
-byte-compatible, so a run resumes across the two packages.
+layers it needs (`io.mrc`, `io.cistem`, `io.pdb`, the STAR reader,
+`config`, `utils.log`/`timer`, `stream.web`, and `cli`'s project
+parameters), whose on-disk formats stay byte-compatible, so a run resumes
+across the two packages.
 
 Ported: the SPA gold-standard refinement loop (`pipeline.refine.refine_loop`)
 with both pose-search engines — FRM (`ops.frm`, the default: polar
@@ -14,24 +15,34 @@ matching against a direction bank per half map, then a final sub-lattice
 polish) and gather (whose global search scores through the hand-written
 CUDA kernel `ops.kernels.shift_scored_match`, source in `csrc/`: a 3xTF32
 tensor-core GEMM with the shift max as its epilogue) — with reference
-auto-masking, per-particle defocus and beam-tilt refinement. The entry
-points (`cli.main`, `pipeline.refine.refine_loop`,
-`refinement_iteration`) run on the card unless the caller passes
-`device="cpu"`.
+auto-masking, per-particle defocus and beam-tilt refinement, and every
+reconstruction option of the JAX loop (score shaping, likelihood
+blurring, Ewald-sphere insertion, the sharpened final map, model fitting,
+matching projections); and the map modes `postprocess` (mask-corrected
+FSC, sharpening, local resolution), `fsc` and `mask`. The entry points
+(`cli.main`, `pipeline.refine.refine_loop`, `refinement_iteration`,
+`ops.reconstruct.reconstruct`, `ops.refine3d.refine_batch`,
+`ops.frm.FrmConfig`, `postprocess.core.postprocess_latest`,
+`postprocess.locres.local_resolution`,
+`analysis.modelfit.model_map_fit`) run on the card unless the caller
+passes `device="cpu"`.
 
 Layout:
   pyp_tpu_torch.config      — parameter schema, CLI flags, project file
-  pyp_tpu_torch.io          — MRC and .cistem codecs
+  pyp_tpu_torch.io          — MRC, .cistem and PDB codecs, the STAR reader
   pyp_tpu_torch.utils       — logging, timers
   pyp_tpu_torch.stream      — the web platform's RPC client
   pyp_tpu_torch.core        — geometry, CTF model, FFT crops, filters, FSC
   pyp_tpu_torch.ops         — Fourier-slice operators, FRM, refine3d,
-                              reconstruct, the CUDA kernels and their build
-                              helper
-  pyp_tpu_torch.postprocess — the reference auto-mask
+                              reconstruct, subvolume extraction, the CUDA
+                              kernels and their build helper
+  pyp_tpu_torch.postprocess — masks, the corrected FSC, sharpening, local
+                              resolution
+  pyp_tpu_torch.analysis    — score shaping, model fitting, plots
   pyp_tpu_torch.pipeline    — the refinement loop
   pyp_tpu_torch.state       — state exchange with the JAX package
-  pyp_tpu_torch.cli         — the `refine` mode
+  pyp_tpu_torch.cli         — the `refine`, `postprocess`, `fsc` and
+                              `mask` modes
 """
 
 from __future__ import annotations

@@ -1,13 +1,21 @@
-"""Command-line entry point of the port: the `refine` mode on a CUDA device.
+"""Command-line entry point of the port: the `refine`, `postprocess`,
+`fsc` and `mask` modes on a CUDA device.
 
     python -m pyp_tpu_torch.cli refine -refine_maxiter 4 -refine_goldstandard ...
+    python -m pyp_tpu_torch.cli postprocess -sharpen_locres ...
+    python -m pyp_tpu_torch.cli fsc half1.mrc half2.mrc [-fsc_mask mask.mrc]
+    python -m pyp_tpu_torch.cli mask -mask_method auto|sphere|file ...
 
 Reads stack.mrc, stack.cistem and initial_model.mrc (or -model_path) from
 the project directory, like `pyp_tpu refine`, and runs the refinement loop
 with the engine the parameters name (`-refine_engine frm`, the default, or
 `gather`); parameters persist in the same project file
 (.pyp_tpu_config.toml, written and read by `config.params` in the same
-format as the JAX package's). Every other mode, SLURM submission and ab
+format as the JAX package's). `postprocess` sharpens the newest half maps
+under maps/ (mask-corrected FSC, Guinier B, optional local resolution);
+`fsc` writes <out>.txt (and <out>.png with matplotlib) for map pairs given
+as arguments; `mask` writes <dataset>_mask.mrc. Each writes the files the
+JAX package's mode writes. Every other mode, SLURM submission and ab
 initio are not ported yet and exit non-zero.
 """
 
@@ -26,7 +34,8 @@ from pyp_tpu_torch.utils import get_logger
 
 logger = get_logger("cli")
 
-# the JAX package's modes; only `refine` is ported
+# the JAX package's modes; `refine`, `postprocess`, `fsc` and `mask` are
+# ported
 MODES = ("spr", "tomo", "extract", "refine", "classify2d", "classify3d",
          "csp", "polish", "postprocess", "import_star", "export_star",
          "clean", "worker", "params", "gain", "stream", "kselection",
@@ -108,16 +117,154 @@ def mode_refine(argv, device="cuda"):
     return 0
 
 
+def mode_postprocess(argv, device="cuda"):
+    params = _project_params(argv)
+    from pyp_tpu_torch.postprocess import core as post
+
+    dataset = params.get("data_set") or "dataset"
+    out = post.postprocess_latest(dataset, params, device=device)
+    print(json.dumps(out, default=str))
+    return 0
+
+
+def mode_fsc(argv, device="cuda"):
+    """FSC between consecutive map pairs given as positionals, with the
+    mask-corrected FSC where -fsc_mask names a mask; resolutions at 0.5
+    and 0.143; <out>.txt and, with matplotlib, <out>.png
+    (-fsc_out, default "fsc")."""
+    from pyp_tpu_torch import as_f32, resolve_device
+    from pyp_tpu_torch.core import fsc as fsc_mod
+    from pyp_tpu_torch.io import mrc
+
+    dev = resolve_device(device)
+    maps, rest, prev_flag = [], [], False
+    for a in argv:
+        if (not prev_flag and not a.startswith("-")
+                and (a.endswith(".mrc") or a.endswith(".rec"))):
+            maps.append(a)           # positional map; flag values stay put
+        else:
+            rest.append(a)
+            prev_flag = a.startswith("-")
+            continue
+        prev_flag = False
+    params = _project_params(rest, persist=False)
+    if len(maps) < 2 or len(maps) % 2 != 0:
+        print("usage: pyp_tpu fsc half1.mrc half2.mrc [h1b.mrc h2b.mrc ...] "
+              "[-fsc_mask mask.mrc] [-fsc_out fsc]")
+        return 1
+    mask = (as_f32(mrc.read(str(params["fsc_mask"])), dev)
+            if params.get("fsc_mask") else None)
+    out_base = str(params.get("fsc_out") or "fsc")
+    curves, labels, results, freqs, pixel = [], [], [], None, 0.0
+    for i in range(0, len(maps), 2):
+        h1 = as_f32(mrc.read(maps[i]), dev)
+        h2 = as_f32(mrc.read(maps[i + 1]), dev)
+        pixel = float(mrc.read_header(maps[i]).pixel_size) or float(
+            params.get("scope_pixel") or 1.0)
+        if mask is not None:
+            from pyp_tpu_torch.postprocess.core import masked_fsc
+
+            freqs, curve = masked_fsc(h1, h2, mask, pixel)
+        else:
+            freqs, curve = fsc_mod.fsc(h1, h2)
+        freqs = freqs.cpu().numpy()
+        curves.append(curve.cpu().numpy())
+        label = f"{Path(maps[i]).stem} vs {Path(maps[i + 1]).stem}"
+        labels.append(label)
+        results.append({
+            "pair": label,
+            "res_0.5_A": float(fsc_mod.resolution_at_threshold(
+                freqs, curves[-1], pixel, 0.5)),
+            "res_0.143_A": float(fsc_mod.resolution_at_threshold(
+                freqs, curves[-1], pixel, 0.143)),
+        })
+    np.savetxt(out_base + ".txt", np.stack([freqs] + curves, axis=1),
+               header="freq_cyc_per_px " + " ".join(
+                   lb.replace(" ", "_") for lb in labels))
+    try:
+        from pyp_tpu_torch.analysis import plots
+
+        plots.plot_fsc(freqs, curves, pixel, out_base + ".png", labels=labels)
+    except (ImportError, OSError, ValueError) as e:
+        logger.warning("FSC plot skipped: %s", e)
+    print(json.dumps({"pairs": results, "masked": mask is not None,
+                      "out": out_base}))
+    return 0
+
+
+def mode_mask(argv, device="cuda"):
+    """A 3D mask from the newest maps/ half-map pair (or -model_path):
+    sphere, file or auto (-mask_method), optionally inverted, normalized
+    and floored (-mask_outside_weight); writes <dataset>_mask.mrc."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import as_f32, resolve_device
+    from pyp_tpu_torch.core.filters import soft_spherical_mask
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.postprocess.core import auto_mask
+
+    dev = resolve_device(device)
+    src = Path(params.get("model_path") or "")
+    if not params.get("model_path") or not src.is_file():
+        maps = sorted(Path("maps").glob("*_half1.mrc"))
+        if not maps:
+            logger.error("mask: no -model_path and no maps/*_half1.mrc")
+            return 1
+        h1 = mrc.read(maps[-1]).astype(np.float32)
+        h2 = mrc.read(str(maps[-1]).replace("half1", "half2")).astype(np.float32)
+        vol, pixel = h1 + h2, mrc.read_header(maps[-1]).pixel_size
+    else:
+        vol = mrc.read(src).astype(np.float32)
+        pixel = mrc.read_header(src).pixel_size
+    method = str(params.get("mask_method") or "auto")
+    n = vol.shape[-1]
+    if method == "sphere":
+        rad_px = float(params.get("mask_radius") or 0.0) / pixel or n * 0.4
+        mask = soft_spherical_mask(
+            n, rad_px, float(params.get("mask_edge_width") or 5.0),
+            device=dev).cpu().numpy()
+    elif method == "file":
+        mask = mrc.read(params["mask_file"]).astype(np.float32)
+    else:
+        mask = auto_mask(
+            as_f32(vol, dev), pixel_size=pixel,
+            lowpass_a=float(params.get("mask_lowpass") or 15.0),
+            threshold_sigmas=float(params.get("mask_threshold") or 1.0),
+            dilation_px=int(params.get("mask_dilation") or 3),
+            soft_px=int(params.get("mask_edge_width") or 6),
+            mw_kda=float(params.get("mask_mw")
+                         or params.get("particle_mw") or 0.0)).cpu().numpy()
+    if params.get("mask_invert"):
+        mask = 1.0 - mask
+    if params.get("mask_normalized"):
+        # stretch to the full [0, 1] range
+        lo, hi = float(mask.min()), float(mask.max())
+        mask = (mask - lo) / max(hi - lo, 1e-9)
+    ow = float(params.get("mask_outside_weight") or 0.0)
+    if ow > 0:
+        # keep a fraction of the outside density: m' = w + (1-w) m
+        mask = ow + (1.0 - ow) * mask
+    out = f"{params.get('data_set') or 'dataset'}_mask.mrc"
+    mrc.write(mask.astype(np.float32), out, pixel_size=pixel)
+    print(json.dumps({"mask": out, "coverage":
+                      round(float((mask > 0.5).mean()), 4)}))
+    return 0
+
+
+PORTED = {"refine": mode_refine, "postprocess": mode_postprocess,
+          "fsc": mode_fsc, "mask": mode_mask}
+
+
 def main(argv=None, device="cuda"):
-    """Entry point: `main(["refine", ...], device=...)`. Returns the exit
-    code; modes other than refine are not yet ported."""
+    """Entry point: `main([mode, ...], device=...)` for the ported modes
+    (refine, postprocess, fsc, mask). Returns the exit code; other modes
+    are not yet ported and return 2."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0 if argv else 2
     mode, rest = argv[0], argv[1:]
-    if mode == "refine":
-        return mode_refine(rest, device=device)
+    if mode in PORTED:
+        return PORTED[mode](rest, device=device)
     if mode in MODES:
         logger.error("mode %r is not yet ported to pyp_tpu_torch", mode)
     else:

@@ -1,5 +1,6 @@
-"""Contrast transfer function model (CTFFIND4/5 conventions) — the torch
-port of the parts of pyp_tpu/core/ctf.py the refinement slice uses.
+"""Contrast transfer function model (CTFFIND4/5 conventions) and the
+Grant-Grigorieff dose weighting — the torch port of the parts of
+pyp_tpu/core/ctf.py the SPA loop uses.
 
     chi(g, t) = pi * lambda * g^2 * df(t) - pi/2 * Cs * lambda^3 * g^4
                 + phase_shift
@@ -80,3 +81,49 @@ def ctf_2d(shape, pixel_size, df1, df2, angast_deg, voltage_kv, cs_mm,
     if bfactor is not None:
         out = out * torch.exp(-0.25 * bc(bfactor) * g * g)
     return out
+
+
+# ---------------------------------------------------------------------------
+# dose weighting (Grant & Grigorieff 2015 critical-exposure model)
+# ---------------------------------------------------------------------------
+
+# Grant-Grigorieff critical-exposure constants, module state as in the JAX
+# package; set_dose_model overrides them for other detectors/voltages
+_DOSE_ABC = (0.24499, -1.6649, 2.8141)
+
+
+def set_dose_model(a: float, b: float, c: float):
+    global _DOSE_ABC
+    _DOSE_ABC = (float(a), float(b), float(c))
+
+
+def critical_exposure(g):
+    """Critical exposure Ne(g) in e-/Å² at frequency g (1/Å, a tensor)."""
+    a, b, c = _DOSE_ABC
+    return a * torch.pow(torch.clamp(g, min=1e-6), b) + c
+
+
+def dose_weight(g, cumulative_dose):
+    """Per-frequency damage envelope exp(-dose / (2 Ne)). g: tensor in
+    1/Å; cumulative_dose: broadcastable e-/Å² (dose at frame end)."""
+    dose = torch.as_tensor(cumulative_dose, dtype=torch.float32,
+                           device=g.device)
+    return torch.exp(-dose / (2.0 * critical_exposure(g)))
+
+
+def dose_weight_2d(shape, pixel_size, cumulative_doses, rfft=True,
+                   device=None):
+    """2D dose-weight filters (n_frames, ny, nx//2+1 with `rfft`) for a
+    stack of frames, normalized so the sum of squares over frames is 1 at
+    each frequency (keeps white-noise variance constant)."""
+    ny, nx = shape
+    if isinstance(cumulative_doses, torch.Tensor) and device is None:
+        device = cumulative_doses.device
+    fy = _fftfreq(ny, pixel_size, False, device).reshape(ny, 1)
+    fx = _fftfreq(nx, pixel_size, rfft, device).reshape(1, -1)
+    g = torch.sqrt(fy * fy + fx * fx)
+    doses = torch.as_tensor(cumulative_doses, dtype=torch.float32,
+                            device=g.device)
+    w = dose_weight(g[None], doses[:, None, None])
+    norm = torch.sqrt(torch.sum(w * w, dim=0, keepdim=True))
+    return w / torch.clamp(norm, min=1e-8)

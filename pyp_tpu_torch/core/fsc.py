@@ -1,5 +1,7 @@
-"""Fourier shell correlation and the FSC-derived filter — the torch port
-of the parts of pyp_tpu/core/fsc.py the refinement slice uses."""
+"""Fourier shell correlation and derived statistics — the torch port of
+pyp_tpu/core/fsc.py: shell-wise correlation of two half maps, the
+resolution at a threshold, the part-FSC mask correction, SSNR, the Cref
+filter and the amplitude-correlation / phase-residual curves."""
 
 from __future__ import annotations
 
@@ -55,6 +57,53 @@ def resolution_at_threshold(freqs, curve, pixel_size, threshold=0.143):
                     0.0, 1.0)
     f_cross = f0 + t * (f1 - f0) if crossed else torch.tensor(0.5)
     return pixel_size / f_cross
+
+
+def part_fsc(fsc_masked, fsc_unmasked_rand, randomization_bin: int):
+    """High-resolution noise-substitution correction (Chen et al. 2013):
+    true FSC = (masked - rand) / (1 - rand) beyond the randomization shell."""
+    corrected = (fsc_masked - fsc_unmasked_rand) / torch.clamp(
+        1.0 - fsc_unmasked_rand, min=1e-6)
+    shells = torch.arange(fsc_masked.shape[0], device=fsc_masked.device)
+    return torch.where(shells <= randomization_bin, fsc_masked, corrected)
+
+
+def fsc_to_ssnr(curve, eps=1e-6):
+    """Shell SSNR from FSC of half maps: SSNR = 2 FSC / (1 - FSC)."""
+    c = torch.clamp(curve, 0.0, 1.0 - eps)
+    return 2.0 * c / (1.0 - c)
+
+
+def amplitude_correlation_and_dpr(map1, map2, n_bins: int | None = None):
+    """Per-shell amplitude correlation and differential phase residual
+    (the relion_postprocess --ampl_corr curves). Returns (freqs,
+    ampl_corr, dpr_degrees); DPR is the amplitude-weighted RMS phase
+    difference per shell."""
+    n = map1.shape[-1]
+    if n_bins is None:
+        n_bins = n // 2
+    f1 = torch.fft.rfftn(map1.to(torch.float32)).reshape(-1)
+    f2 = torch.fft.rfftn(map2.to(torch.float32)).reshape(-1)
+    bins = _shell_bins(n, n_bins, map1.device)
+    a1, a2 = f1.abs(), f2.abs()
+
+    def shell_sum(v):
+        return _shell_sum(v, bins, n_bins)
+
+    cnt = shell_sum(torch.ones_like(a1))
+    m1 = shell_sum(a1) / torch.clamp(cnt, min=1.0)
+    m2 = shell_sum(a2) / torch.clamp(cnt, min=1.0)
+    num = shell_sum((a1 - m1[bins]) * (a2 - m2[bins]))
+    d1 = shell_sum((a1 - m1[bins]) ** 2)
+    d2 = shell_sum((a2 - m2[bins]) ** 2)
+    ampl_corr = num / torch.clamp(torch.sqrt(d1 * d2), min=1e-12)
+    dphi = torch.angle(f1 * f2.conj())            # [-pi, pi]
+    w = a1 + a2
+    dpr = torch.sqrt(shell_sum(w * dphi ** 2)
+                     / torch.clamp(shell_sum(w), min=1e-12))
+    freqs = (torch.arange(n_bins, dtype=torch.float32, device=map1.device)
+             + 0.5) * (0.5 / n_bins)
+    return freqs, ampl_corr, torch.rad2deg(dpr)
 
 
 def fsc_weights(curve):

@@ -1,1 +1,2 @@
-"""I/O codecs the port reads and writes: MRC and cisTEM binary tables."""
+"""I/O codecs the port reads and writes: MRC, cisTEM binary tables, PDB
+coordinates and RELION STAR tables (read only)."""

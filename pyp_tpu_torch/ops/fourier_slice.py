@@ -207,6 +207,43 @@ def project(Fvol, R, n: int):
     return gather_3d_hermitian(Fvol, slice_coords(R, n), scale=float(pad))
 
 
+def project_ewald(Fvol, R, n: int, ewald_c: float):
+    """Curved-sphere projection spectra: the physical image on the Ewald
+    sphere mixes both branches, X(g) = (F(s+) + F*(s-)) / 2 with
+    s± = ±g.e + c g² ez — hermitian by construction, and equal to
+    `project` at ewald_c = 0."""
+    pad = Fvol.shape[0] // n
+    q = slice_coords(R, n)
+    curve = _ewald_curve(R, n, ewald_c)
+    Fp = gather_3d_hermitian(Fvol, q + curve, scale=float(pad))
+    Fm = gather_3d_hermitian(Fvol, -q + curve, scale=float(pad))
+    return 0.5 * (Fp + Fm.conj())
+
+
+def project_real(vol, phi, theta, psi, pad: int = DEFAULT_PAD):
+    """Real-space projection images (B, n, n) of a volume (tensor) for
+    Euler angle arrays, on the volume's device."""
+    from pyp_tpu_torch.core.geometry import euler_to_matrix
+
+    n = vol.shape[-1]
+    dev = vol.device
+
+    def ang(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    R = euler_to_matrix(ang(phi), ang(theta), ang(psi))
+    return fourier_to_image(project(volume_to_fourier(vol, pad), R, n), n)
+
+
+def _ewald_curve(R, n: int, ewald_c: float):
+    """Sphere offsets c |g|² ez (B, n, n//2+1, 3) in (z, y, x) order, in
+    unpadded wavenumber units: ez is the beam axis in volume coords."""
+    ky, kx = _wavenumbers(n, R.device)
+    g2 = ky[:, None] ** 2 + kx[None, :] ** 2
+    ez = R[..., 2, :].flip(-1)
+    return ewald_c * g2[None, :, :, None] * ez[:, None, None, :]
+
+
 def _corner_lists(qs, vals, c2, q0, frac, in_sphere, pn, nxf):
     """Flattened (index, Re, Im, CTF^2) lists over the 8 trilinear gridding
     corners."""
@@ -236,26 +273,11 @@ def _corner_lists(qs, vals, c2, q0, frac, in_sphere, pn, nxf):
             torch.cat(wc2))
 
 
-def insert_slices_halves(F_parts, ctfs, R, subset, weights, n: int,
-                         pad: int = DEFAULT_PAD, gridding: str = "trilinear",
-                         ewald_c: float = 0.0, ref_fourier=None, chi=None):
-    """CTF-weighted trilinear gridding insertion of particle spectra into
-    the num/den accumulators of both half sets in one scatter pass: the half
-    id offsets the flat index into a doubled float32 buffer. F_parts, ctfs
-    (B, n, n//2+1); R (B, 3, 3); subset (B,) 0/1; weights (B,). Returns
-    (num1, den1, num2, den2) on the (pn, pn, pn//2+1) grid, pn = pad*n.
-
-    The scatter is `index_add_`, which uses atomics on CUDA: the order of
-    the sums varies from run to run."""
-    if ewald_c or ref_fourier is not None or chi is not None:
-        raise NotImplementedError(
-            "Ewald-sphere insertion (IEWALD != 0) is ported in a later PR")
-    pn = pad * n
-    nxf = pn // 2 + 1
-    q = slice_coords(R, n) * pad
-    w3 = weights.to(torch.float32)[:, None, None]
-    vals = F_parts * ctfs * w3
-    c2 = ctfs * ctfs * w3
+def _scatter(q, vals, c2, pn: int, nxf: int, n_sets: int, set_id):
+    """Trilinear scatter of (vals, c2) at padded coords q into n_sets
+    stacked (pn, pn, nxf) accumulator pairs; set_id (B,) picks each
+    slice's set (None: all in set 0). Returns (num (n_sets, ...) complex,
+    den (n_sets, ...) real)."""
     flip = q[..., 2] < 0
     qs = torch.where(flip[..., None], -q, q)
     vals = torch.where(flip, vals.conj(), vals)
@@ -263,20 +285,105 @@ def insert_slices_halves(F_parts, ctfs, R, subset, weights, n: int,
     frac = qs - q0f
     q0 = q0f.to(torch.int64)
     in_sphere = torch.sum(q * q, dim=-1) <= (pn // 2) ** 2
-
     idx, wre, wim, wc2 = _corner_lists(qs, vals, c2, q0, frac, in_sphere,
                                        pn, nxf)
     size = pn * pn * nxf
-    B = vals.shape[0]
-    per = idx.shape[0] // (8 * B)
-    half = torch.clamp(subset.to(torch.int64), 0, 1)
-    idx = idx + half.repeat_interleave(per).repeat(8) * size
-    kw = dict(dtype=torch.float32, device=F_parts.device)
-    num_re = torch.zeros(2 * size, **kw).index_add_(0, idx, wre)
-    num_im = torch.zeros(2 * size, **kw).index_add_(0, idx, wim)
-    den = torch.zeros(2 * size, **kw).index_add_(0, idx, wc2)
-    num = torch.complex(num_re, num_im).reshape(2, pn, pn, nxf)
-    den = den.reshape(2, pn, pn, nxf)
+    if set_id is not None:
+        per = idx.shape[0] // (8 * vals.shape[0])
+        idx = idx + set_id.repeat_interleave(per).repeat(8) * size
+    kw = dict(dtype=torch.float32, device=q.device)
+    num_re = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wre)
+    num_im = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wim)
+    den = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wc2)
+    return (torch.complex(num_re, num_im).reshape(n_sets, pn, pn, nxf),
+            den.reshape(n_sets, pn, pn, nxf))
+
+
+def insert_slices(F_parts, ctfs, R, n: int, pad: int = DEFAULT_PAD,
+                  weights=None):
+    """CTF-weighted trilinear gridding insertion of particle spectra into
+    one oversampled accumulator pair: num += w CTF F, den += w CTF^2 at
+    pad*q. F_parts, ctfs (B, n, n//2+1); R (B, 3, 3). Returns (num, den)
+    on the (pn, pn, pn//2+1) grid, pn = pad*n."""
+    pn = pad * n
+    vals = F_parts * ctfs
+    c2 = ctfs * ctfs
+    if weights is not None:
+        w3 = weights.to(torch.float32)[:, None, None]
+        vals, c2 = vals * w3, c2 * w3
+    num, den = _scatter(slice_coords(R, n) * pad, vals, c2, pn,
+                        pn // 2 + 1, 1, None)
+    return num[0], den[0]
+
+
+def insert_slices_halves(F_parts, ctfs, R, subset, weights, n: int,
+                         pad: int = DEFAULT_PAD, gridding: str = "trilinear",
+                         ewald_c: float = 0.0, ref_fourier=None, chi=None,
+                         fit_ref_scale: bool = False):
+    """CTF-weighted trilinear gridding insertion of particle spectra into
+    the num/den accumulators of both half sets in one scatter pass: the half
+    id offsets the flat index into a doubled float32 buffer. F_parts, ctfs
+    (B, n, n//2+1); R (B, 3, 3); subset (B,) 0/1; weights (B,). Returns
+    (num1, den1, num2, den2) on the (pn, pn, pn//2+1) grid, pn = pad*n.
+
+    ewald_c: Ewald-sphere curvature in index units (lambda / (2 n pixel),
+    signed by handedness; IEWALD ±1). Each sample lands on the sphere,
+    offset c |g|² along the beam axis; the curvature is even in g, so both
+    sides insert explicitly (X(g) at g.e + c g² ez, X*(g) at
+    -g.e + c g² ez): 2B slices, each carrying its particle's half id.
+
+    ref_fourier + chi (with ewald_c): the reference-based unmixing of
+    IEWALD ±2. With ctf+ = (i/2) e^{i chi}, the measured spectrum is
+    X(g) = ctf+ F(s+) + conj(ctf+) F*(s-); the reference (sampled at its
+    own pad, ref_fourier.shape[0] // n) predicts the opposite branch,
+    which is subtracted, and the rest is matched-filtered by conj(ctf+)
+    with den += |ctf+|² w = w/4. Any envelope folded into `ctfs` is not
+    applied on that path. fit_ref_scale first scales the reference, per
+    particle, by the least-squares amplitude (floored at 0) of its
+    predicted image against the particle's spectrum, so a reference on
+    another scale than the particles (a normalized stack, a map from
+    another source) predicts the opposite branch at the data's scale.
+
+    The scatter is `index_add_`, which uses atomics on CUDA: the order of
+    the sums varies from run to run."""
+    pn = pad * n
+    q_u = slice_coords(R, n)
+    w3 = weights.to(torch.float32)[:, None, None]
+    vals = F_parts * ctfs * w3
+    c2 = ctfs * ctfs * w3
+    q = q_u * pad
+    subset = subset.to(torch.int64)
+    if ewald_c:
+        curve_u = _ewald_curve(R, n, ewald_c)
+        if ref_fourier is not None and chi is not None:
+            pad_ref = ref_fourier.shape[0] // n
+            Rp = gather_3d_hermitian(ref_fourier, q_u + curve_u,
+                                     scale=float(pad_ref))
+            Rm = gather_3d_hermitian(ref_fourier, -q_u + curve_u,
+                                     scale=float(pad_ref))
+            ctfp_c = (0.5j * torch.polar(torch.ones_like(chi), chi)).conj()
+            if fit_ref_scale:
+                # least-squares amplitude of the reference's predicted
+                # image against each particle, floored at 0
+                pred = ctfp_c.conj() * Rp + ctfp_c * Rm.conj()
+                a = ((pred.conj() * F_parts).real.sum((-2, -1))
+                     / torch.clamp((pred.real ** 2 + pred.imag ** 2)
+                                   .sum((-2, -1)), min=1e-30))
+                a = torch.clamp(a, min=0.0)[:, None, None]
+                Rp, Rm = Rp * a, Rm * a
+            Yp = F_parts - ctfp_c * Rm.conj()      # remove the F*(s-) term
+            Ym = F_parts.conj() - ctfp_c * Rp.conj()  # remove the F*(s+) term
+            vals = torch.cat([ctfp_c * Yp * w3, ctfp_c * Ym * w3])
+            c2b = 0.25 * w3 * torch.ones_like(chi)
+            c2 = torch.cat([c2b, c2b])
+        else:
+            vals = torch.cat([vals, vals.conj()])
+            c2 = torch.cat([c2, c2])
+        curve = curve_u * pad
+        q = torch.cat([q + curve, -q + curve])
+        subset = torch.cat([subset, subset])
+    num, den = _scatter(q, vals, c2, pn, pn // 2 + 1, 2,
+                        torch.clamp(subset, 0, 1))
     return num[0], den[0], num[1], den[1]
 
 

@@ -628,7 +628,7 @@ class FrmConfig:
                  angular_step=7.5, symmetry="C1", n_psi=None,
                  shift_extent=6.0, shift_step=1.0, rounds=3,
                  voltage_kv=300.0, cs_mm=2.7, amplitude_contrast=0.07,
-                 upsample=4, wiener=0.1, crop_margin=8, device="cpu"):
+                 upsample=4, wiener=0.1, crop_margin=8, device="cuda"):
         self.device = dev = resolve_device(device)
         self.n_data = int(n)
         self.radii = make_rings(n, pixel_size, low_res, high_res)

@@ -8,8 +8,10 @@ summation. The Wiener-regularized quotient with trilinear gridding
 correction gives the half maps, their FSC, and the FSC-filtered combined
 map.
 
-Not ported yet (they raise NotImplementedError): dose weighting (`doses`),
-likelihood blurring (`lblur`) and Ewald-sphere insertion (`iewald` != 0).
+Options of the insertion: dose weighting (`doses`), likelihood blurring
+(`lblur`: one insertion per psi offset and symmetry mate) and Ewald-sphere
+insertion (`iewald` ±1 curved, ±2 reference-based unmixing against the
+current map).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from pyp_tpu_torch import resolve_device
 from pyp_tpu_torch.core import fsc as fsc_mod
-from pyp_tpu_torch.core.fft import fourier_crop
+from pyp_tpu_torch.core import ctf as ctf_model
+from pyp_tpu_torch.core.fft import fourier_crop, fourier_crop_3d
 from pyp_tpu_torch.core.geometry import apply_symmetry_matrices, euler_to_matrix
 from pyp_tpu_torch.ops.fourier_slice import (
     DEFAULT_PAD,
@@ -29,6 +32,7 @@ from pyp_tpu_torch.ops.fourier_slice import (
     image_to_fourier,
     insert_slices_halves,
     reconstruct_from_accumulators,
+    volume_to_fourier,
 )
 from pyp_tpu_torch.ops.refine3d import _ctf_at_points
 
@@ -55,6 +59,21 @@ def _ctf_grids(n, pixel_size, ctf_params, voltage_kv, cs_mm, w):
     cp = ctf_params[:, :, None, None]
     return _ctf_at_points(pts[None], n, pixel_size, cp[:, 0], cp[:, 1],
                           cp[:, 2], voltage_kv, cs_mm, w, cp[:, 3])
+
+
+def _chi_grids(n, pixel_size, ctf_params, voltage_kv, cs_mm, w):
+    """Total aberration phase grids chi_tot (B, n, n//2+1) such that
+    CTF = -sin(chi_tot): the branch phase of the reference-based Ewald
+    insertion (insert_slices_halves' chi argument)."""
+    ky, kx = _wavenumbers(n, ctf_params.device)
+    gy = ky[:, None] / (n * pixel_size)
+    gx = kx[None, :] / (n * pixel_size)
+    g = torch.sqrt(gy * gy + gx * gx)
+    azim = torch.atan2(gy, gx)
+    amp = float(np.arctan2(w, np.sqrt(max(1.0 - w * w, 0.0))))
+    cp = ctf_params[:, :, None, None]
+    df = ctf_model.defocus_at_azimuth(cp[:, 0], cp[:, 1], cp[:, 2], azim)
+    return ctf_model.chi(g, df, voltage_kv, cs_mm, cp[:, 3]) + amp
 
 
 def _shift_correct(X, shifts, n):
@@ -86,25 +105,53 @@ def accumulate(
     iewald: int = 0,
     lblur=None,
     ref_fourier=None,
+    fit_ref_scale: bool = False,
 ) -> Accumulators:
     """Insert a batch of particles (tensors on one device) into (possibly
     pre-existing) accumulators; every symmetry mate inserts once. `prev` is
-    updated in place."""
-    if doses is not None:
-        raise NotImplementedError("dose weighting in accumulate is ported "
-                                  "in a later PR")
-    if lblur is not None:
-        raise NotImplementedError("likelihood blurring (lblur) is ported in "
-                                  "a later PR")
-    if iewald or ref_fourier is not None:
-        raise NotImplementedError("Ewald-sphere insertion (iewald != 0) is "
-                                  "ported in a later PR")
+    updated in place.
+
+    doses (B,): cumulative exposures (e-/Å²) apply the Grant-Grigorieff
+    damage envelope to each particle's CTF weight.
+
+    iewald: ±1 curved insertion at curvature sign * lambda / (2 n pixel)
+    (handedness-invariant); ±2 with `ref_fourier` (the padded spectrum of
+    the current map) the reference-based unmixing, whose sign is the
+    handedness; ±2 without a reference degrades to ±1. fit_ref_scale
+    fits the reference's amplitude to each particle (insert_slices_halves).
+
+    lblur: an (offsets_deg, rel_weights) bank (lblur_bank): each particle
+    inserts at every psi offset around its refined in-plane angle with the
+    relative weight, once per symmetry mate."""
     dev = stack.device
     X = _shift_correct(image_to_fourier(stack), poses[:, 3:5], n)
     ctfs = _ctf_grids(n, pixel_size, ctf_params, voltage_kv, cs_mm,
                       amplitude_contrast)
-    R = euler_to_matrix(poses[:, 0], poses[:, 1], poses[:, 2])
+    if doses is not None:
+        ky = np.fft.fftfreq(n, d=pixel_size).reshape(n, 1)
+        kx = np.fft.rfftfreq(n, d=pixel_size).reshape(1, -1)
+        g = torch.as_tensor(np.sqrt(ky * ky + kx * kx).astype(np.float32),
+                            device=dev)
+        doses = torch.as_tensor(doses, dtype=torch.float32, device=dev)
+        ctfs = ctfs * ctf_model.dose_weight(g[None], doses[:, None, None])
     sym_mats = torch.as_tensor(apply_symmetry_matrices(symmetry), device=dev)
+
+    ewald_c = 0.0
+    if iewald:
+        ewald_c = (float(np.sign(iewald)) * ctf_model.wavelength_host(voltage_kv)
+                   / (2.0 * n * pixel_size))
+    chi = None
+    if abs(iewald) >= 2 and ref_fourier is not None and ewald_c:
+        chi = _chi_grids(n, pixel_size, ctf_params, voltage_kv, cs_mm,
+                         amplitude_contrast)
+    if lblur is not None:
+        blur_terms = [(euler_to_matrix(poses[:, 0], poses[:, 1],
+                                       poses[:, 2] + float(off)),
+                       weights * float(w))
+                      for off, w in zip(*lblur)]
+    else:
+        blur_terms = [(euler_to_matrix(poses[:, 0], poses[:, 1],
+                                       poses[:, 2]), weights)]
 
     pn = pad * n
     nxf = pn // 2 + 1
@@ -114,12 +161,31 @@ def accumulate(
             torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev),
             torch.zeros((pn, pn, nxf), dtype=torch.complex64, device=dev),
             torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev))
-    for k in range(sym_mats.shape[0]):
-        parts = insert_slices_halves(X, ctfs, R @ sym_mats[k][None], subset,
-                                     weights, n, pad=pad, gridding=gridding)
-        for acc, part in zip(prev, parts):
-            acc.add_(part)
+    for R, wb in blur_terms:
+        for k in range(sym_mats.shape[0]):
+            parts = insert_slices_halves(
+                X, ctfs, R @ sym_mats[k][None], subset, wb, n, pad=pad,
+                gridding=gridding, ewald_c=ewald_c,
+                ref_fourier=ref_fourier if chi is not None else None,
+                chi=chi, fit_ref_scale=fit_ref_scale)
+            for acc, part in zip(prev, parts):
+                acc.add_(part)
     return prev
+
+
+def lblur_bank(lblur_nrot: int, lblur_range: float = 20.0):
+    """Likelihood-blurring (offsets, weights) bank, or None when disabled:
+    lblur_nrot psi offsets across lblur_range degrees centred on the
+    refined in-plane angle, Gaussian weights with FWHM half the window,
+    normalized to unit mass."""
+    if not lblur_nrot or lblur_nrot <= 1:
+        return None
+    offs = np.linspace(-lblur_range / 2.0, lblur_range / 2.0,
+                       int(lblur_nrot))
+    sigma = max((lblur_range / 2.0) / 2.355, 1e-3)
+    rw = np.exp(-0.5 * (offs / sigma) ** 2)
+    rw = rw / rw.sum()
+    return tuple(float(o) for o in offs), tuple(float(w) for w in rw)
 
 
 def merge_accumulators(accs) -> Accumulators:
@@ -155,7 +221,7 @@ def reconstruct(
     batch: int = 256, pad: int = DEFAULT_PAD, gridding: str = "trilinear",
     crop_to: int = None, iewald: int = 0,
     lblur_nrot: int = 0, lblur_range: float = 20.0,
-    ref_volume=None, device="cpu",
+    ref_volume=None, fit_ref_scale: bool = False, device="cuda",
 ) -> Reconstruction:
     """Reconstruction of a full particle stack on `device`, inserted in
     batches of at most `batch` particles. Inputs may be numpy arrays (each
@@ -164,13 +230,13 @@ def reconstruct(
     crop_to: band-limited reconstruction grid — each batch is Fourier-
     cropped on the device, shifts and pixel size rescale, the pad factor
     grows to max(2, round(pad * n / n_rec)), and the returned maps live on
-    the crop grid."""
-    if iewald or ref_volume is not None:
-        raise NotImplementedError("Ewald-sphere insertion (iewald != 0) is "
-                                  "ported in a later PR")
-    if lblur_nrot and lblur_nrot > 1:
-        raise NotImplementedError("likelihood blurring (lblur) is ported in "
-                                  "a later PR")
+    the crop grid.
+
+    iewald, ref_volume: Ewald-sphere insertion (see `accumulate`); at ±2
+    the reference's padded spectrum (pad 2, Fourier-cropped with the stack
+    under crop_to, on the cropped data's scale) is built once and shared
+    by every batch; fit_ref_scale fits its amplitude per particle. lblur_nrot > 1
+    with lblur_range: likelihood blurring (lblur_bank)."""
     dev = resolve_device(device)
     n = stack.shape[-1]
     B = stack.shape[0]
@@ -190,6 +256,16 @@ def reconstruct(
         # data wavenumber, round() not ceil() (pyp_tpu reconstruct.py:469)
         pad = max(2, int(round(pad * n / float(n_rec))))
     pixel_rec = pixel_size / ratio
+    lblur = lblur_bank(lblur_nrot, lblur_range)
+    ref_fourier = None
+    if abs(iewald) >= 2 and ref_volume is not None:
+        rv = on(ref_volume)
+        if n_rec < n:
+            # a cropped image keeps its mean, so its spectrum shrinks by
+            # (n_rec/n)^2 while a cropped volume's shrinks by (n_rec/n)^3:
+            # n/n_rec puts the reference's projections on the data's scale
+            rv = fourier_crop_3d(rv, (n_rec, n_rec, n_rec)) * (n / n_rec)
+        ref_fourier = volume_to_fourier(rv, pad=2)
     acc = None
     for i in range(0, B, batch):
         sl = slice(i, min(i + batch, B))
@@ -201,7 +277,9 @@ def reconstruct(
         acc = accumulate(
             xb, pb, on(ctf_params[sl]), on(subset[sl], torch.int64),
             on(weights[sl]), n_rec, pixel_rec, voltage_kv, cs_mm,
-            amplitude_contrast, symmetry, pad, prev=acc, gridding=gridding)
+            amplitude_contrast, symmetry, pad, prev=acc, gridding=gridding,
+            iewald=iewald, lblur=lblur, ref_fourier=ref_fourier,
+            fit_ref_scale=fit_ref_scale)
     return finalize(acc, n_rec, pad, wiener, gridding)
 
 

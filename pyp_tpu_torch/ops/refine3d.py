@@ -378,7 +378,7 @@ def refine_batch(
     lr_angles: float = 2.0,
     lr_shifts: float = 0.4,
     shell_weights=None,
-    device="cpu",
+    device="cuda",
 ) -> RefineResult:
     """Full refine3d-equivalent on one batch of particles, on `device`.
     Inputs may be numpy arrays or tensors. `shell_weights` (G,) weights

@@ -12,11 +12,16 @@ also applies the calibrated beam tilt (scope_beam_tilt_x/y), the one-shot
 beam-tilt estimate (refine_beamtilt) and per-particle defocus refinement
 (refine_fdef).
 
-Not ported yet (each raises NotImplementedError when requested): the final
-B-factor sharpening (reconstruct_fbfact), model fitting (model_fit),
-matching projections (refine_fmatch), score shaping, likelihood blurring
-(reconstruct_lblur) and Ewald-sphere insertion (reconstruct_iewald). There
-is no silent switch to another engine or device.
+The reconstruction honours score shaping (reconstruct_min*/max*,
+reconstruct_score_fraction, reconstruct_shapr), likelihood blurring
+(reconstruct_lblur) and Ewald-sphere insertion (reconstruct_iewald ±1, ±2
+against the current map); the final iteration can write the Guinier-
+sharpened map (reconstruct_fbfact, <stem>_sharp.mrc); each iteration can
+score a PDB model against its map (model_fit, <dataset>_model_fit.txt);
+and the end of the run can write the matching projections at the final
+poses (refine_fmatch, <dataset>_match.mrc). `check_ported` refuses only an
+engine other than frm and gather: there is no silent switch to another
+engine or device.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import numpy as np
 import torch
 
 from pyp_tpu_torch import as_f32, resolve_device
+from pyp_tpu_torch.analysis import scores
+from pyp_tpu_torch.analysis.plots import plot_iteration_changes
 from pyp_tpu_torch.config.params import param
 from pyp_tpu_torch.core import fsc as fsc_mod
 from pyp_tpu_torch.core.fft import fourier_crop_3d
@@ -38,8 +45,9 @@ from pyp_tpu_torch.io import cistem, mrc
 from pyp_tpu_torch.ops import frm
 from pyp_tpu_torch.ops import reconstruct as rec
 from pyp_tpu_torch.ops import refine3d
-from pyp_tpu_torch.ops.fourier_slice import volume_to_fourier
-from pyp_tpu_torch.postprocess.core import auto_mask
+from pyp_tpu_torch.ops.fourier_slice import project_real, volume_to_fourier
+from pyp_tpu_torch.postprocess.core import (auto_mask, guinier_bfactor,
+                                            sharpen_map)
 from pyp_tpu_torch.stream.web import Web
 from pyp_tpu_torch.utils import Timer, get_logger
 
@@ -116,15 +124,18 @@ def reconstruct_banded(stack, poses, ctf_params, pixel, high_res, rc_kwargs,
                           device=device, **rc_kwargs)
     # shell k on the crop grid IS data wavenumber k: remap the FSC onto the
     # data shell axis (zero beyond the band) and upsample the maps by
-    # centered Fourier pad
+    # centered Fourier pad. A map inserted from cropped images comes out
+    # n/n_rec times the full-size map's density; n_rec/n restores the
+    # scale, so every iteration's map (the reference of the next) has one
     dev = out.fsc.device
     fsc_full = torch.zeros(n_data // 2, dtype=torch.float32, device=dev)
     fsc_full[:n_rec // 2] = out.fsc
     shape = (n_data, n_data, n_data)
+    scale = n_rec / n_data
     return out._replace(
-        volume=fourier_crop_3d(out.volume, shape),
-        half1=fourier_crop_3d(out.half1, shape),
-        half2=fourier_crop_3d(out.half2, shape),
+        volume=fourier_crop_3d(out.volume, shape) * scale,
+        half1=fourier_crop_3d(out.half1, shape) * scale,
+        half2=fourier_crop_3d(out.half2, shape) * scale,
         fsc=fsc_full,
         freqs=torch.arange(n_data // 2, dtype=torch.float32, device=dev)
         / n_data)
@@ -154,26 +165,12 @@ def pixel_hint(table, params):
 
 
 def check_ported(params: dict):
-    """Raise NotImplementedError for every requested feature the port does
-    not have yet; never switch to another engine silently."""
+    """Raise NotImplementedError for an engine the port does not have;
+    never switch to another engine silently."""
     engine = str(params.get("refine_engine") or "frm")
     if engine not in ("frm", "gather"):
         raise NotImplementedError(f"refine_engine={engine!r} is not ported; "
                                   "use -refine_engine frm or gather")
-    unported = [
-        ("reconstruct_fbfact", "B-factor sharpening (reconstruct_fbfact)"),
-        ("model_fit", "model fitting (model_fit)"),
-        ("refine_fmatch", "matching projections (refine_fmatch)"),
-        ("reconstruct_lblur", "likelihood blurring (reconstruct_lblur)"),
-        ("reconstruct_iewald", "Ewald-sphere insertion (reconstruct_iewald)"),
-    ]
-    for key, what in unported:
-        v = params.get(key)
-        if v not in (None, "", 0, 0.0, False):
-            raise NotImplementedError(f"{what} is ported in a later PR")
-    if _shaping_requested(params):
-        raise NotImplementedError("score shaping (reconstruct_min*/max*, "
-                                  "reconstruct_shapr) is ported in a later PR")
 
 
 def _reference_mask(params, ref_volume, pixel, dev):
@@ -329,7 +326,8 @@ def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
 
 def refinement_iteration(
     stack, table: cistem.Table, ref_volume, params: dict, iteration: int,
-    batch: int = 256, fsc_curve=None, ref_halves=None, device="cuda",
+    batch: int = 256, fsc_curve=None, ref_halves=None, prev_table=None,
+    device="cuda",
 ):
     """One iteration on `device`: refine poses in batches of at most
     `batch` particles, then reconstruct half maps + FSC. `stack` is a
@@ -340,7 +338,10 @@ def refinement_iteration(
     engine and refine_goldstandard, each half-set's particles align only
     against their own half map (its own bank and polish reference). The
     gather engine aligns every particle against the combined map, as the
-    JAX package's gather engine does."""
+    JAX package's gather engine does.
+
+    prev_table: the table before the previous iteration's refinement, for
+    the consistency test of reconstruct_shapr=consistency."""
     check_ported(params)
     dev = resolve_device(device)
     pixel = pixel_hint(table, params)
@@ -462,6 +463,13 @@ def refinement_iteration(
         if thr_pct > 0 and "score" in table:
             sc = np.asarray(table["score"])
             weights = np.where(sc >= np.percentile(sc, thr_pct), weights, 0.0)
+        # score shaping: group-local cutoffs and the defocus / azimuth /
+        # tilt / frame windows, folded into the weights (the table keeps
+        # its alignment state)
+        if _shaping_requested(params) and "score" in table:
+            keep = scores.shaping_mask_from_params(table, params,
+                                                   previous=prev_table)
+            weights = np.where(keep, weights, 0.0)
         batch = int(params.get("reconstruct_batch") or batch)
         min_occ = float(params.get("reconstruct_min_occ") or 0.0)
         if min_occ > 0 and "occupancy" in table:
@@ -479,7 +487,26 @@ def refinement_iteration(
             batch=batch,
             pad=int(params.get("reconstruct_pad") or 2),
             gridding=str(params.get("reconstruct_gridding") or "trilinear"),
+            iewald=int(params.get("reconstruct_iewald") or 0),
         )
+        if abs(rc_kwargs["iewald"]) >= 2:
+            # reference-based Ewald (IEWALD ±2): the current map predicts
+            # the opposite sphere branch during insertion. Normalized
+            # particles (reconstruct_norm) lose the starting map's scale,
+            # so there the reference's amplitude is fitted to each
+            # particle; inserted unscaled, a starting map ~100x the
+            # normalized particles takes over the map and the loop diverges
+            rc_kwargs["ref_volume"] = ref_volume
+            rc_kwargs["fit_ref_scale"] = bool(params.get("reconstruct_norm"))
+        if params.get("reconstruct_lblur"):
+            # likelihood blurring: insert over a psi-offset bank
+            rc_kwargs["lblur_range"] = float(
+                params.get("reconstruct_lblur_range") or 20.0)
+            step_deg = float(params.get("reconstruct_lblur_step") or 0.0)
+            rc_kwargs["lblur_nrot"] = (
+                max(3, int(round(rc_kwargs["lblur_range"] / step_deg)) | 1)
+                if step_deg > 0
+                else int(params.get("reconstruct_lblur_nrot") or 21))
         rec_stack = stack
         if params.get("reconstruct_norm"):
             # per-particle normalization ahead of insertion
@@ -512,27 +539,6 @@ def refinement_iteration(
     logger.info("iteration %d: FSC(0.143) resolution %.2f Å%s", iteration,
                 res_a, peak)
     return table, out, res_a
-
-
-def _plot_iteration_changes(d_angles, d_shifts, scores, out_path, iteration):
-    """Angular-change, shift-change and score histograms of one iteration."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    fig, axes = plt.subplots(1, 3, figsize=(10.5, 2.8))
-    axes[0].hist(d_angles, bins=40, color="tab:blue")
-    axes[0].set_xlabel("angular change (°)")
-    axes[0].set_ylabel("particles")
-    axes[1].hist(d_shifts, bins=40, color="tab:orange")
-    axes[1].set_xlabel("shift change (px)")
-    axes[2].hist(scores, bins=40, color="tab:green")
-    axes[2].set_xlabel("score")
-    fig.suptitle(f"iteration {iteration}", fontsize=10)
-    fig.tight_layout()
-    fig.savefig(out_path, dpi=110)
-    plt.close(fig)
 
 
 def _rotation_change_deg(prev_poses, now):
@@ -589,7 +595,13 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
     state (maps/<dataset>_r{cls:02d}_{it:02d}.mrc/.cistem, half maps, FSC,
     history JSON), resuming after the latest finished iteration found in
     maps/ — whichever package wrote it. Returns (table, final map,
-    history)."""
+    history).
+
+    With reconstruct_fbfact the final iteration also writes
+    <stem>_<it>_sharp.mrc; with model_fit each iteration appends its PDB
+    fit to maps/<dataset>_model_fit.txt (and `model_cc` to the history);
+    with refine_fmatch the run ends by writing maps/<dataset>_match.mrc,
+    the projections of the final map at the final poses."""
     check_ported(params)
     dev = resolve_device(device)
     maps_dir = Path(work_dir) / "maps"
@@ -649,11 +661,14 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
             while (maps_dir / "wait").exists():
                 time.sleep(5.0)
             logger.info("maps/wait removed: resuming")
+        prev_table = (table.copy()
+                      if _shaping_requested(params) and "score" in table
+                      else None)
         prev_poses = (table_to_poses(table, pixel)
                       if params.get("plot_per_item", True) else None)
         table, recon, res_a = refinement_iteration(
             stack, table, ref, params, it, fsc_curve=fsc_curve,
-            ref_halves=ref_halves, device=dev)
+            ref_halves=ref_halves, prev_table=prev_table, device=dev)
         ref_halves = (recon.half1, recon.half2)
         if params.get("refine_beamtilt") and not beam_tilt_done and it > start:
             # one-shot dataset beam-tilt estimate once poses are warm
@@ -687,6 +702,17 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
         mrc.write(_np(recon.half2), maps_dir / f"{stem}_{it:02d}_half2.mrc",
                   pixel_size=pixel)
         cistem.write_parameters(table, maps_dir / f"{stem}_{it:02d}.cistem")
+        if params.get("reconstruct_fbfact") and it == maxiter + 1:
+            # Guinier B over the refined band, applied negated to the final
+            # map, written beside the unsharpened one
+            bfac = guinier_bfactor(ref, pixel, max_res=max(res_a, 2.2 * pixel))
+            sharp, _ = sharpen_map(ref, pixel, bfactor=-abs(bfac),
+                                   resolution=res_a)
+            mrc.write(_np(sharp).astype(np.float32),
+                      maps_dir / f"{stem}_{it:02d}_sharp.mrc",
+                      pixel_size=pixel)
+            logger.info("fbfact: Guinier B %.1f Å² applied to final map",
+                        bfac)
         np.savetxt(maps_dir / f"{stem}_{it:02d}_fsc.txt",
                    np.stack([_np(recon.freqs), _np(recon.fsc)], 1),
                    header="freq_cyc_per_px fsc")
@@ -701,7 +727,7 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
             sc = (np.asarray(table["score"]) if "score" in table
                   else np.zeros(table.n_rows))
             try:
-                _plot_iteration_changes(
+                plot_iteration_changes(
                     d_ang, d_sh, sc, maps_dir / f"{stem}_{it:02d}_changes.png",
                     iteration=it)
             except (ImportError, ValueError, OSError) as e:
@@ -712,13 +738,66 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
         if "occupancy" in table:
             entry["occupancies"] = [round(
                 float(np.mean(np.asarray(table["occupancy"]))), 2)]
+        if params.get("model_fit"):
+            _model_fit(params, ref, pixel, it, entry,
+                       maps_dir / f"{dataset}_model_fit.txt", dev)
         history.append(entry)
         (maps_dir / f"{stem}_history.json").write_text(json.dumps(history))
         web = Web()
         if web.exists:
             web.write_reconstruction(dataset, it, res_a,
                                      fsc=_np(recon.fsc).tolist())
+    if params.get("refine_fmatch"):
+        # matching projections at the final poses (visual pose QC), in
+        # batches of 512
+        poses_f = table_to_poses(table, pixel)
+        ref_dev = as_f32(ref, dev)
+        match = [_np(project_real(ref_dev, poses_f[lo:lo + 512, 0],
+                                  poses_f[lo:lo + 512, 1],
+                                  poses_f[lo:lo + 512, 2]))
+                 for lo in range(0, table.n_rows, 512)]
+        mrc.write(np.concatenate(match).astype(np.float32),
+                  maps_dir / f"{dataset}_match.mrc", pixel_size=pixel)
+        logger.info("matching projections written to %s",
+                    maps_dir / f"{dataset}_match.mrc")
     return table, ref, history
+
+
+def _model_fit(params, ref, pixel, it, entry, out_path, dev):
+    """Score the model_fit PDB against this iteration's map (prepared by
+    model_pixel / model_scale / model_flip / model_clip): `model_cc` into
+    the history entry, one "<it> <cc> <shift z y x>" line appended to
+    out_path. An unreadable model is a warning, as in the JAX package."""
+    from pyp_tpu_torch.analysis.modelfit import model_map_fit
+    from pyp_tpu_torch.io.pdb import read_pdb
+
+    try:
+        rhref_fit = float(param(params["refine_rhref"], it))
+        fit_map = as_f32(ref, dev)
+        fit_pixel = float(params.get("model_pixel") or 0.0) or pixel
+        if params.get("model_scale") not in (None, "", 0, 1, 1.0):
+            fit_map = fit_map * float(params["model_scale"])
+        if params.get("model_flip"):
+            fit_map = fit_map.flip(0)
+        clip = int(params.get("model_clip") or 0)
+        if 0 < clip < fit_map.shape[-1]:
+            lo = max(fit_map.shape[-1] // 2 - clip // 2, 0)
+            fit_map = fit_map[lo:lo + clip, lo:lo + clip, lo:lo + clip]
+        res_cap = float(params.get("model_res") or 0.0)
+        fit = model_map_fit(
+            read_pdb(str(params["model_fit"])), fit_map, fit_pixel,
+            low_res=float(params.get("refine_rlref") or 100.0),
+            high_res=max(rhref_fit, res_cap, 2.5 * fit_pixel),
+            extra_bfactor_a2=float(params.get("model_fit_bfactor") or 100.0),
+            device=dev)
+        entry["model_cc"] = round(fit["cc"], 4)
+        with open(out_path, "a") as f:
+            f.write(f"{it} {fit['cc']:.4f} "
+                    f"{' '.join(str(int(s)) for s in fit['shift_px'])}\n")
+        logger.info("model fit (iter %d): cc %.3f shift %s", it, fit["cc"],
+                    fit["shift_px"].tolist())
+    except (OSError, ValueError) as e:
+        logger.warning("model fit skipped: %s", e)
 
 
 def _half_subsets(table) -> np.ndarray:

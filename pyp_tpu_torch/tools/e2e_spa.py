@@ -145,3 +145,27 @@ def masked_cc(volume_map, truth, pixel=1.0, resolution=10.0):
     m = soft_spherical_mask(box, box * 0.35, 4.0).numpy() > 0.5
     return float(np.corrcoef(lp(volume_map)[m].ravel(),
                              lp(truth)[m].ravel())[0, 1])
+
+
+def write_pseudo_atom_pdb(volume, pixel, n_atoms, path):
+    """Test data for model fitting: the `n_atoms` densest voxels of a map
+    written as carbon ATOM records (x, y, z in Å about the box centre),
+    each with its density relative to the densest as occupancy. Returns
+    `path`."""
+    vol = np.asarray(volume, dtype=np.float32)
+    n = vol.shape[-1]
+    flat = vol.reshape(-1)
+    top = np.argsort(flat)[::-1][:int(n_atoms)]
+    zyx = np.stack(np.unravel_index(top, vol.shape), 1).astype(np.float32)
+    xyz = (zyx[:, ::-1] - n // 2) * pixel
+    occ = np.clip(flat[top] / flat[top[0]], 0.01, 1.0)
+    with open(path, "w") as f:
+        for i, ((x, y, z), o) in enumerate(zip(xyz, occ), start=1):
+            # PDB v3 columns: serial 7-11, name 13-16, resName 18-20,
+            # chain 22, resSeq 23-26, x/y/z 31-54, occupancy 55-60,
+            # B 61-66, element 77-78
+            f.write(f"ATOM  {i % 100000:5d} C    ALA A{1:4d}    "
+                    f"{x:8.3f}{y:8.3f}{z:8.3f}{o:6.2f}{0.0:6.2f}"
+                    f"           C\n")
+        f.write("END\n")
+    return str(path)

@@ -22,6 +22,15 @@ difference between the devices' FFTs can move a near-tie); auto_mask
 within 1e-5 with the same binary core; refine_defocus within 0.5 Å,
 scores within 1e-5; one FRM iteration with half banks and the polish
 >= 90% of poses within 1° and map cc >= 0.99.
+
+The SPA back half (phases of the masked FSC drawn once on the CPU and
+shared, since each device's generator draws its own): reconstruction
+with IEWALD ±2 and likelihood blurring maps atol 1e-4 * max|map|, FSC
+atol 1e-3; the mask-corrected FSC atol 1e-4; postprocess_latest with
+local resolution: resolution within 1e-3 Å, maps atol 1e-3 * max|map|;
+model_map_fit cc within 1e-4 and the same shift; the loop with every
+reconstruction option >= 90% of poses within 1°, map cc >= 0.99, the
+same files; the fsc and mask modes' files atol 1e-4 / 1e-5.
 """
 
 import numpy as np
@@ -244,3 +253,161 @@ def test_frm_iteration_with_half_banks(data, tmp_path):
     cc = np.corrcoef(rc.volume.cpu().numpy().ravel(),
                      rh.volume.numpy().ravel())[0, 1]
     assert cc >= 0.99, cc
+
+
+# --- the SPA back half -----------------------------------------------------
+
+def _cpu_phases(shape, seed, device):
+    """Phases drawn on the CPU for a seed, moved to `device`: the same on
+    both devices."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return (torch.rand(tuple(shape), generator=gen) * (2 * np.pi)).to(device)
+
+
+@pytest.fixture
+def shared_phases(monkeypatch):
+    from pyp_tpu_torch.postprocess import core as post
+
+    monkeypatch.setattr(post, "_random_phases", _cpu_phases)
+
+
+@pytest.fixture(scope="module")
+def halves(data):
+    rng = np.random.RandomState(4)
+    v = data["volume"]
+    amp = 0.4 * v.std()
+    return (v + amp * rng.randn(*v.shape).astype(np.float32),
+            v + amp * rng.randn(*v.shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("kw", [dict(iewald=2, ref=True, crop_to=16),
+                                dict(iewald=-1),
+                                dict(lblur_nrot=21, lblur_range=20.0)],
+                         ids=["iewald2_crop", "iewald-1", "lblur21"])
+def test_reconstruct_options(data, kw):
+    stack = bandlimit(data["stack"])
+    kw = dict(kw)
+    if kw.pop("ref", False):
+        kw["ref_volume"] = data["volume"]
+
+    def run(dev):
+        return rec.reconstruct(stack, truth_poses(data), data["ctf_params"],
+                               PIXEL, batch=10, device=dev, **kw)
+
+    out, ref = run("cuda"), run("cpu")
+    for name in ("volume", "half1", "half2"):
+        b = getattr(ref, name).numpy()
+        np.testing.assert_allclose(getattr(out, name).cpu().numpy(), b, rtol=0,
+                                   atol=1e-4 * float(np.abs(b).max()),
+                                   err_msg=name)
+    np.testing.assert_allclose(out.fsc.cpu().numpy(), ref.fsc.numpy(), atol=1e-3)
+
+
+def test_masked_fsc_and_local_resolution(halves, shared_phases):
+    from pyp_tpu_torch.postprocess import core as post
+    from pyp_tpu_torch.postprocess import locres
+
+    h1, h2 = halves
+    mask = post.auto_mask(on(h1 + h2, "cpu"), pixel_size=PIXEL)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, curve = post.masked_fsc(on(h1, dev), on(h2, dev), mask.to(dev), PIXEL)
+        lr, _, vals = locres.local_resolution(h1, h2, PIXEL, sampling_a=16.0,
+                                              device=dev)
+        out[dev] = (curve.cpu().numpy(), lr.cpu().numpy(), vals)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], atol=1e-3)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-3 * float(
+        np.abs(out["cpu"][1]).max()))
+
+
+def test_postprocess_latest(halves, tmp_path, shared_phases):
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.postprocess import core as post
+
+    params = {"plot_per_item": False, "sharpen_locres": True,
+              "sharpen_locres_sampling": 16.0, "sharpen_ampl_corr": True,
+              "sharpen_half_maps": True}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        maps = tmp_path / dev / "maps"
+        maps.mkdir(parents=True)
+        mrc.write(halves[0], maps / "ds_r01_02_half1.mrc", pixel_size=PIXEL)
+        mrc.write(halves[1], maps / "ds_r01_02_half2.mrc", pixel_size=PIXEL)
+        outs[dev] = post.postprocess_latest("ds", dict(params), tmp_path / dev,
+                                            device=dev)
+    a, b = outs["cuda"], outs["cpu"]
+    assert sorted(a) == sorted(b)
+    assert a["resolution_A"] == pytest.approx(b["resolution_A"], abs=1e-3)
+    for key in ("map", "locres_map", "locfilt_map", "half1_postprocessed"):
+        x, y = mrc.read(a[key]), mrc.read(b[key])
+        np.testing.assert_allclose(x, y, rtol=0, atol=1e-3 * float(np.abs(y).max()),
+                                   err_msg=key)
+
+
+def test_model_map_fit(data, tmp_path):
+    from pyp_tpu_torch.analysis.modelfit import model_map_fit
+    from pyp_tpu_torch.io.pdb import read_pdb
+
+    model = read_pdb(e2e_spa.write_pseudo_atom_pdb(
+        data["volume"], PIXEL, N ** 3 // 32, tmp_path / "m.pdb"))
+    fits = {dev: model_map_fit(model, data["volume"], PIXEL, low_res=50.0,
+                               high_res=8.0, device=dev)
+            for dev in ("cuda", "cpu")}
+    assert fits["cuda"]["cc"] == pytest.approx(fits["cpu"]["cc"], abs=1e-4)
+    np.testing.assert_array_equal(fits["cuda"]["shift_px"], fits["cpu"]["shift_px"])
+    np.testing.assert_allclose(fits["cuda"]["fsc"], fits["cpu"]["fsc"], atol=1e-4)
+
+
+def test_refine_loop_with_every_option(data, tmp_path):
+    init = e2e_spa.starting_map(data["volume"], PIXEL, 12.0)
+    pdb = e2e_spa.write_pseudo_atom_pdb(data["volume"], PIXEL, N ** 3 // 32,
+                                        tmp_path / "m.pdb")
+    params = schema.defaults()
+    params.update({
+        "scope_pixel": PIXEL, "refine_engine": "frm", "refine_maxiter": 2,
+        "refine_rhref": "8:6", "refine_dang": "12", "refine_searchx": 3.0,
+        "refine_rlref": 100.0, "refine_goldstandard": True,
+        "refine_frm_cone": 15.0, "plot_per_item": False,
+        "reconstruct_fbfact": True, "reconstruct_score_fraction": 0.9,
+        "reconstruct_lblur": True, "reconstruct_iewald": 2,
+        "refine_fmatch": True, "model_fit": pdb,
+    })
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        work = tmp_path / dev
+        work.mkdir()
+        e2e_spa.write_project(work, data, init, pixel=PIXEL)
+        table = cistem.read_parameters(work / "stack.cistem")
+        outs[dev] = ref_pipe.refine_loop(data["stack"], table, init,
+                                         dict(params), work_dir=work,
+                                         dataset="ds", device=dev)
+    (tc, mc, hc), (th, mh, hh) = outs["cuda"], outs["cpu"]
+    err = e2e_spa.angular_error_deg(tc["phi"], tc["theta"], tc["psi"], {
+        "phi": th["phi"], "theta": th["theta"], "psi": th["psi"]})
+    assert np.mean(err < 1.0) >= 0.9, err
+    assert np.corrcoef(mc.cpu().numpy().ravel(), mh.numpy().ravel())[0, 1] >= 0.99
+    assert [set(h) for h in hc] == [set(h) for h in hh]
+    names = sorted(p.name for p in (tmp_path / "cpu" / "maps").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "cuda" / "maps").iterdir())
+    assert "ds_match.mrc" in names and "ds_r01_03_sharp.mrc" in names
+
+
+def test_fsc_and_mask_modes(halves, tmp_path, monkeypatch, shared_phases):
+    from pyp_tpu_torch import cli
+    from pyp_tpu_torch.io import mrc
+
+    for dev in ("cuda", "cpu"):
+        work = tmp_path / dev
+        work.mkdir()
+        monkeypatch.chdir(work)
+        mrc.write(halves[0], "h_half1.mrc", pixel_size=PIXEL)
+        mrc.write(halves[1], "h_half2.mrc", pixel_size=PIXEL)
+        assert cli.main(["mask", "-model_path", "h_half1.mrc", "-data_set",
+                         "d"], device=dev) == 0
+        assert cli.main(["fsc", "h_half1.mrc", "h_half2.mrc", "-fsc_mask",
+                         "d_mask.mrc"], device=dev) == 0
+    np.testing.assert_allclose(mrc.read(tmp_path / "cuda" / "d_mask.mrc"),
+                               mrc.read(tmp_path / "cpu" / "d_mask.mrc"), atol=1e-5)
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "cuda" / "fsc.txt"),
+                               np.loadtxt(tmp_path / "cpu" / "fsc.txt"), atol=1e-4)

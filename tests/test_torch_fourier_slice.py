@@ -125,10 +125,3 @@ class TestInsertion:
         close(out, ref)
         close(tfs.gridding_correction(N, 3), jfs.gridding_correction(N, 3), atol_rel=1e-5)
 
-    def test_ewald_raises(self):
-        imgs, ctfs, subset, weights = self._inputs(B=2)
-        _, Rt = rotations(2)
-        with pytest.raises(NotImplementedError, match="later PR"):
-            tfs.insert_slices_halves(tfs.image_to_fourier(t(imgs)), t(ctfs),
-                                     Rt, t(subset), t(weights), N,
-                                     ewald_c=0.01)

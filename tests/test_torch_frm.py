@@ -32,6 +32,8 @@ from pyp_tpu_torch.ops import reconstruct as rec
 
 CFG = dict(low_res=30.0, high_res=6.0, angular_step=11.0, shift_extent=3.0,
            shift_step=0.5)
+# the port's FrmConfig defaults to the card: these tests run on the CPU
+TCFG = dict(CFG, device="cpu")
 
 
 def t(x):
@@ -282,7 +284,7 @@ class TestMatch:
         vol, stack, cp, truth = problem
         shifts = -truth["shifts"] if not marginalize else None
         cj = jf.FrmConfig(N, PIXEL, **CFG)
-        ct = tf.FrmConfig(N, PIXEL, **CFG)
+        ct = tf.FrmConfig(N, PIXEL, **TCFG)
         bj = cj.bank(jfs.volume_to_fourier(jnp.asarray(vol)))
         bt = ct.bank(tfs.volume_to_fourier(t(vol)))
         ref = jf.frm_score_directions(jnp.asarray(stack), jnp.asarray(cp), cj,
@@ -318,7 +320,7 @@ class TestFrmRefine:
         vol, stack, cp, truth = problem
         monkeypatch.setenv("PYP_TPU_FRM_POLAR", mode)
         cj = jf.FrmConfig(N, PIXEL, **CFG)
-        ct = tf.FrmConfig(N, PIXEL, **CFG)
+        ct = tf.FrmConfig(N, PIXEL, **TCFG)
         assert ct.polar_gather == cj.polar_gather == (mode == "gather")
         init = cone = None
         if local:
@@ -341,7 +343,7 @@ class TestFrmRefine:
 
     def test_d_block_does_not_change_results(self, problem):
         vol, stack, cp, _ = problem
-        cfg = tf.FrmConfig(N, PIXEL, **CFG)
+        cfg = tf.FrmConfig(N, PIXEL, **TCFG)
         bank = cfg.bank(tfs.volume_to_fourier(t(vol)))
         D = bank.FUc.shape[0]
         outs = [tf.frm_refine(t(stack), t(cp), None, cfg, bank=bank,
@@ -359,7 +361,7 @@ class TestRecovery:
 
     def test_global_recovery(self, problem):
         vol, stack, cp, truth = problem
-        cfg = tf.FrmConfig(N, PIXEL, **CFG)
+        cfg = tf.FrmConfig(N, PIXEL, **TCFG)
         poses, _ = tf.frm_refine(t(stack), t(cp), tfs.volume_to_fourier(t(vol)),
                                  cfg)
         poses = poses.numpy()
@@ -372,7 +374,7 @@ class TestRecovery:
 
     def test_local_mode_prior(self, problem):
         vol, stack, cp, truth = problem
-        cfg = tf.FrmConfig(N, PIXEL, **dict(CFG, angular_step=6.0))
+        cfg = tf.FrmConfig(N, PIXEL, **dict(TCFG, angular_step=6.0))
         init = np.stack([truth["phi"], truth["theta"], truth["psi"],
                          np.zeros(16), np.zeros(16)], 1).astype(np.float32)
         poses, _ = tf.frm_refine(t(stack), t(cp), tfs.volume_to_fourier(t(vol)),
@@ -405,7 +407,7 @@ class TestRecovery:
             np.float32)
         cfg = tf.FrmConfig(n, pixel, low_res=40.0, high_res=9.0,
                            angular_step=11.0, shift_extent=4.0,
-                           shift_step=0.5, rounds=2)
+                           shift_step=0.5, rounds=2, device="cpu")
         assert cfg.n < n, (cfg.n, n)  # the crop engaged
         poses, _ = tf.frm_refine(t(imgs), t(cp), Fv, cfg)
         poses = poses.numpy()
@@ -423,14 +425,16 @@ class TestRecovery:
                                       shift_max=3.0)
         cfg = tf.FrmConfig(N, PIXEL, low_res=30.0, high_res=6.0,
                            angular_step=10.0, shift_extent=4.0,
-                           shift_step=0.5, rounds=3)
+                           shift_step=0.5, rounds=3, device="cpu")
         poses, _ = tf.frm_refine(t(stack), t(cp), tfs.volume_to_fourier(t(vol)),
                                  cfg)
-        out = rec.reconstruct(np.array(stack), poses, np.array(cp), PIXEL)
+        out = rec.reconstruct(np.array(stack), poses, np.array(cp), PIXEL,
+                            device="cpu")
         cc = np.corrcoef(out.volume.numpy().ravel(), vol.ravel())[0, 1]
         assert cc > 0.6, cc
         flipped = torch.cat([poses[:, :3], -poses[:, 3:]], 1)
-        out_f = rec.reconstruct(np.array(stack), flipped, np.array(cp), PIXEL)
+        out_f = rec.reconstruct(np.array(stack), flipped, np.array(cp),
+                              PIXEL, device="cpu")
         assert cc > np.corrcoef(out_f.volume.numpy().ravel(), vol.ravel())[0, 1]
 
     def test_gather_mode_recovery_parity(self, problem, monkeypatch):
@@ -438,7 +442,7 @@ class TestRecovery:
         meds = {}
         for mode in ("matmul", "gather"):
             monkeypatch.setenv("PYP_TPU_FRM_POLAR", mode)
-            cfg = tf.get_config(N, PIXEL, **CFG)
+            cfg = tf.get_config(N, PIXEL, **TCFG)
             assert cfg.polar_gather == (mode == "gather")
             poses, _ = tf.frm_refine(t(stack), t(cp),
                                      tfs.volume_to_fourier(t(vol)), cfg)

@@ -2,9 +2,10 @@
 chip_smoke.py, imports the JAX package, and the layers the port keeps its
 own copies of (config, io, the CLI's project parameters) behave as the JAX
 package's do: the same schema defaults and parsed flags, project files
-and MRC / .cistem files each package reads back from the other, byte for
-byte where both write. Also: the port's loop entry points default to the
-card, so they raise on a machine without one."""
+and MRC / .cistem / PDB files each package reads back from the other,
+byte for byte where both write, and STAR tables (the port keeps only the
+reader) read the same. Also: the port's entry points default to the card,
+so they raise on a machine without one."""
 
 import ast
 from pathlib import Path
@@ -18,12 +19,16 @@ from pyp_tpu.config import params as jparams
 from pyp_tpu.config import schema as jschema
 from pyp_tpu.io import cistem as jcistem
 from pyp_tpu.io import mrc as jmrc
+from pyp_tpu.io import pdb as jpdb
+from pyp_tpu.io import star as jstar
 from pyp_tpu.sched import bridge
 from pyp_tpu_torch import cli as tcli
 from pyp_tpu_torch.config import params as tparams
 from pyp_tpu_torch.config import schema as tschema
 from pyp_tpu_torch.io import cistem as tcistem
 from pyp_tpu_torch.io import mrc as tmrc
+from pyp_tpu_torch.io import pdb as tpdb
+from pyp_tpu_torch.io import star as tstar
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -130,11 +135,22 @@ def _table(n=7, seed=0):
     return t
 
 
-@pytest.mark.parametrize("what", ["mrc", "cistem"])
+@pytest.mark.parametrize("what", ["mrc", "cistem", "pdb"])
 def test_files_are_byte_identical_and_cross_read(what, tmp_path):
     rng = np.random.RandomState(1)
     paths = {p: tmp_path / f"{p}.{what}" for p in ("jax", "port")}
-    if what == "mrc":
+    if what == "pdb":
+        xyz = rng.uniform(-50, 50, (9, 3)).astype(np.float32)
+        elements = ["C", "N", "O", "S", "P", "FE", "ZN", "H", "MG"]
+        bf = rng.uniform(0, 80, 9).astype(np.float32)
+        jpdb.write_pdb(xyz, paths["jax"], elements=elements, bfactors=bf)
+        tpdb.write_pdb(xyz, paths["port"], elements=elements, bfactors=bf)
+        for path in paths.values():
+            a, b = jpdb.read_pdb(path), tpdb.read_pdb(path)
+            assert a["elements"] == b["elements"] == elements
+            for k in ("coords", "weights", "bfactors"):
+                np.testing.assert_array_equal(a[k], b[k])
+    elif what == "mrc":
         vol = rng.randn(6, 8, 10).astype(np.float32)
         jmrc.write(vol, paths["jax"], pixel_size=1.3)
         tmrc.write(vol, paths["port"], pixel_size=1.3)
@@ -157,19 +173,67 @@ def test_files_are_byte_identical_and_cross_read(what, tmp_path):
     assert paths["jax"].read_bytes() == paths["port"].read_bytes()
 
 
-@pytest.mark.parametrize("entry", ["refine_loop", "refinement_iteration"])
-def test_loop_entry_points_default_to_the_card(entry):
+def test_star_tables_read_the_same(tmp_path):
+    """The port's copy of the STAR reader (what read_mtf_curve calls)
+    parses what the JAX package writes as the JAX reader does."""
+    path = tmp_path / "t.star"
+    loop = {"rlnResolutionInversePixel": np.linspace(0.0, 0.5, 7),
+            "rlnMtfValue": np.linspace(1.0, 0.2, 7),
+            "rlnImageName": np.array([f"{i}@s.mrcs" for i in range(7)]),
+            "rlnClassNumber": np.arange(7)}
+    jstar.write({"mtf": {"fields": {"rlnVersion": "30001"}, "loop": loop},
+                 "extra": {"fields": {"rlnPixel": "1.5"}, "loop": {}}}, path)
+    a, b = jstar.read(path), tstar.read(path)
+    assert list(a) == list(b) == ["mtf", "extra"]
+    for name in a:
+        assert a[name]["fields"] == b[name]["fields"]
+        assert list(a[name]["loop"]) == list(b[name]["loop"])
+        for col in a[name]["loop"]:
+            assert a[name]["loop"][col].dtype == b[name]["loop"][col].dtype
+            np.testing.assert_array_equal(a[name]["loop"][col], b[name]["loop"][col])
+
+
+ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
+                "refine_batch", "FrmConfig", "postprocess_latest",
+                "cli_postprocess", "cli_fsc", "cli_mask", "local_resolution",
+                "model_map_fit"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
+    """Every entry point of the port defaults to "cuda" and raises through
+    resolve_device where there is no card: none carries on on the CPU."""
+    from pyp_tpu_torch.analysis import modelfit
+    from pyp_tpu_torch.ops import frm, reconstruct, refine3d
     from pyp_tpu_torch.pipeline import refine as tref
+    from pyp_tpu_torch.postprocess import core as post
+    from pyp_tpu_torch.postprocess import locres
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
+    monkeypatch.chdir(tmp_path)
     params = tschema.defaults()
     params.update({"scope_pixel": 2.0, "refine_maxiter": 2})
     stack = np.zeros((2, 16, 16), np.float32)
     vol = np.zeros((16, 16, 16), np.float32)
     table = tcistem.Table.zeros(2)
+    poses, cp = np.zeros((2, 5), np.float32), np.zeros((2, 4), np.float32)
+    calls = {
+        "refine_loop": lambda: tref.refine_loop(stack, table, vol, params,
+                                                work_dir="unused"),
+        "refinement_iteration": lambda: tref.refinement_iteration(
+            stack, table, vol, params, 2),
+        "reconstruct": lambda: reconstruct.reconstruct(stack, poses, cp, 2.0),
+        "refine_batch": lambda: refine3d.refine_batch(stack, cp, vol, 2.0),
+        "FrmConfig": lambda: frm.FrmConfig(16, 2.0),
+        "postprocess_latest": lambda: post.postprocess_latest("ds", params),
+        "cli_postprocess": lambda: tcli.main(["postprocess"]),
+        "cli_fsc": lambda: tcli.main(["fsc", "a.mrc", "b.mrc"]),
+        "cli_mask": lambda: tcli.main(["mask", "-model_path", "m.mrc"]),
+        "local_resolution": lambda: locres.local_resolution(vol, vol, 2.0),
+        "model_map_fit": lambda: modelfit.model_map_fit(
+            {"coords": np.zeros((1, 3)), "weights": np.ones(1),
+             "bfactors": np.zeros(1)}, vol, 2.0),
+    }
     with pytest.raises(RuntimeError, match="cuda"):
-        if entry == "refine_loop":
-            tref.refine_loop(stack, table, vol, params, work_dir="unused")
-        else:
-            tref.refinement_iteration(stack, table, vol, params, 2)
+        calls[entry]()

@@ -91,13 +91,6 @@ class TestAccumulate:
         for m_, w_ in zip(trec.merge_accumulators([a, b]), whole):
             close(m_, w_, atol_rel=1e-5)
 
-    def test_unported_options_raise(self, data):
-        _, imgs, cp, poses = data
-        args = [t(imgs[:2]), t(poses[:2]), t(cp[:2]), torch.zeros(2, dtype=torch.int64), torch.ones(2)]
-        for kw in (dict(iewald=1), dict(doses=torch.ones(2)), dict(lblur=((0.0,), (1.0,)))):
-            with pytest.raises(NotImplementedError, match="later PR"):
-                trec.accumulate(*args, N, PIXEL, **kw)
-
 
 class TestFinalize:
     def test_finalize_from_same_accumulators(self, data):
@@ -144,7 +137,7 @@ class TestReconstruct:
             return inner(stack, *a, **k)
 
         monkeypatch.setattr(trec, "accumulate", spy)
-        trec.reconstruct(imgs, poses, cp, PIXEL, batch=8)
+        trec.reconstruct(imgs, poses, cp, PIXEL, batch=8, device="cpu")
         assert sizes == [8, 8, 8]
 
 

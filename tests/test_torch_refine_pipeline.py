@@ -15,8 +15,9 @@ within 5% of the JAX estimate (the estimator reads the iteration's map and
 poses, and amplifies their last-digit differences: fed the same inputs the
 two agree to 1e-3, tests/test_torch_refine3d.py). Also: both packages write the
 same maps/ files, the port resumes from maps/ the JAX package wrote, the
-CLI entry point runs and refuses what is not ported, and importing the
-port's CLI and pipeline loads neither jax nor the JAX package."""
+CLI entry point runs and the loop refuses an unported engine, and
+importing the port's entry points loads neither jax nor the JAX
+package."""
 
 import json
 import subprocess
@@ -227,19 +228,11 @@ def test_cli_refine_and_unported(problem, tmp_path, monkeypatch):
                       device="cpu")
         assert rc == 0
         assert (work / "maps" / "dataset_r01_02.mrc").exists()
-    with pytest.raises(NotImplementedError, match="reconstruct_lblur"):
-        cli.main(["refine", "-refine_engine", "gather", "-reconstruct_lblur"],
-                 device="cpu")
-
-
-@pytest.mark.parametrize("key,value", [("reconstruct_lblur", True),
-                                       ("reconstruct_iewald", 1),
-                                       ("refine_fmatch", True),
-                                       ("reconstruct_minscore", 0.2)])
-def test_unported_features_raise(problem, key, value):
-    *_, params = problem
-    with pytest.raises(NotImplementedError, match="later PR"):
-        tref.check_ported({**params, key: value})
+    # an engine the port does not have is refused, never switched
+    with pytest.raises(NotImplementedError, match="refine_engine='hybrid'"):
+        tref.refine_loop(stack, table.copy(), start,
+                         {**problem[3], "refine_engine": "hybrid"},
+                         work_dir=tmp_path / "hybrid", device="cpu")
 
 
 def test_cli_imports_no_jax():
@@ -249,6 +242,9 @@ def test_cli_imports_no_jax():
             "import pyp_tpu_torch.state, pyp_tpu_torch.tools.e2e_spa; "
             "import pyp_tpu_torch.tools.profile_refine, pyp_tpu_torch.ops.frm; "
             "import pyp_tpu_torch.ops.kernels, pyp_tpu_torch.postprocess.core; "
+            "import pyp_tpu_torch.postprocess.locres, pyp_tpu_torch.analysis.scores; "
+            "import pyp_tpu_torch.analysis.modelfit, pyp_tpu_torch.analysis.plots; "
+            "import pyp_tpu_torch.io.pdb, pyp_tpu_torch.io.star; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pyp_tpu.')) or m == 'pyp_tpu'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -204,7 +204,10 @@ def mode_mask(argv, device="cuda"):
 
     dev = resolve_device(device)
     src = Path(params.get("model_path") or "")
-    if not params.get("model_path") or not src.is_file():
+    if params.get("model_path") and not src.is_file():
+        logger.error("mask: -model_path %s is not a file", src)
+        return 1
+    if not params.get("model_path"):
         maps = sorted(Path("maps").glob("*_half1.mrc"))
         if not maps:
             logger.error("mask: no -model_path and no maps/*_half1.mrc")

@@ -316,10 +316,18 @@ def insert_slices(F_parts, ctfs, R, n: int, pad: int = DEFAULT_PAD,
     return num[0], den[0]
 
 
+def ref_amplitude(pred, F_parts):
+    """Least-squares amplitude (B,) of each predicted image `pred` against
+    its particle's spectrum F_parts (both (B, n, n//2+1) complex), floored
+    at 0."""
+    num = (pred.conj() * F_parts).real.sum((-2, -1))
+    den = (pred.real ** 2 + pred.imag ** 2).sum((-2, -1))
+    return torch.clamp(num / torch.clamp(den, min=1e-30), min=0.0)
+
+
 def insert_slices_halves(F_parts, ctfs, R, subset, weights, n: int,
                          pad: int = DEFAULT_PAD, gridding: str = "trilinear",
-                         ewald_c: float = 0.0, ref_fourier=None, chi=None,
-                         fit_ref_scale: bool = False):
+                         ewald_c: float = 0.0, ref_fourier=None, chi=None):
     """CTF-weighted trilinear gridding insertion of particle spectra into
     the num/den accumulators of both half sets in one scatter pass: the half
     id offsets the flat index into a doubled float32 buffer. F_parts, ctfs
@@ -338,11 +346,12 @@ def insert_slices_halves(F_parts, ctfs, R, subset, weights, n: int,
     own pad, ref_fourier.shape[0] // n) predicts the opposite branch,
     which is subtracted, and the rest is matched-filtered by conj(ctf+)
     with den += |ctf+|² w = w/4. Any envelope folded into `ctfs` is not
-    applied on that path. fit_ref_scale first scales the reference, per
-    particle, by the least-squares amplitude (floored at 0) of its
-    predicted image against the particle's spectrum, so a reference on
-    another scale than the particles (a normalized stack, a map from
-    another source) predicts the opposite branch at the data's scale.
+    applied on that path. The reference is first scaled, per particle, by
+    `ref_amplitude`, so a reference on another scale than the particles
+    (a normalized stack, a band-limited map, a map from another source)
+    predicts the opposite branch at the data's scale; the JAX package
+    inserts it unscaled, which is the same insertion where that amplitude
+    is 1.
 
     The scatter is `index_add_`, which uses atomics on CUDA: the order of
     the sums varies from run to run."""
@@ -362,15 +371,9 @@ def insert_slices_halves(F_parts, ctfs, R, subset, weights, n: int,
             Rm = gather_3d_hermitian(ref_fourier, -q_u + curve_u,
                                      scale=float(pad_ref))
             ctfp_c = (0.5j * torch.polar(torch.ones_like(chi), chi)).conj()
-            if fit_ref_scale:
-                # least-squares amplitude of the reference's predicted
-                # image against each particle, floored at 0
-                pred = ctfp_c.conj() * Rp + ctfp_c * Rm.conj()
-                a = ((pred.conj() * F_parts).real.sum((-2, -1))
-                     / torch.clamp((pred.real ** 2 + pred.imag ** 2)
-                                   .sum((-2, -1)), min=1e-30))
-                a = torch.clamp(a, min=0.0)[:, None, None]
-                Rp, Rm = Rp * a, Rm * a
+            a = ref_amplitude(ctfp_c.conj() * Rp + ctfp_c * Rm.conj(),
+                              F_parts)[:, None, None]
+            Rp, Rm = Rp * a, Rm * a
             Yp = F_parts - ctfp_c * Rm.conj()      # remove the F*(s-) term
             Ym = F_parts.conj() - ctfp_c * Rp.conj()  # remove the F*(s+) term
             vals = torch.cat([ctfp_c * Yp * w3, ctfp_c * Ym * w3])

@@ -105,7 +105,6 @@ def accumulate(
     iewald: int = 0,
     lblur=None,
     ref_fourier=None,
-    fit_ref_scale: bool = False,
 ) -> Accumulators:
     """Insert a batch of particles (tensors on one device) into (possibly
     pre-existing) accumulators; every symmetry mate inserts once. `prev` is
@@ -117,8 +116,8 @@ def accumulate(
     iewald: ±1 curved insertion at curvature sign * lambda / (2 n pixel)
     (handedness-invariant); ±2 with `ref_fourier` (the padded spectrum of
     the current map) the reference-based unmixing, whose sign is the
-    handedness; ±2 without a reference degrades to ±1. fit_ref_scale
-    fits the reference's amplitude to each particle (insert_slices_halves).
+    handedness, its amplitude fitted to each particle
+    (insert_slices_halves); ±2 without a reference degrades to ±1.
 
     lblur: an (offsets_deg, rel_weights) bank (lblur_bank): each particle
     inserts at every psi offset around its refined in-plane angle with the
@@ -167,7 +166,7 @@ def accumulate(
                 X, ctfs, R @ sym_mats[k][None], subset, wb, n, pad=pad,
                 gridding=gridding, ewald_c=ewald_c,
                 ref_fourier=ref_fourier if chi is not None else None,
-                chi=chi, fit_ref_scale=fit_ref_scale)
+                chi=chi)
             for acc, part in zip(prev, parts):
                 acc.add_(part)
     return prev
@@ -221,7 +220,7 @@ def reconstruct(
     batch: int = 256, pad: int = DEFAULT_PAD, gridding: str = "trilinear",
     crop_to: int = None, iewald: int = 0,
     lblur_nrot: int = 0, lblur_range: float = 20.0,
-    ref_volume=None, fit_ref_scale: bool = False, device="cuda",
+    ref_volume=None, device="cuda",
 ) -> Reconstruction:
     """Reconstruction of a full particle stack on `device`, inserted in
     batches of at most `batch` particles. Inputs may be numpy arrays (each
@@ -234,8 +233,7 @@ def reconstruct(
 
     iewald, ref_volume: Ewald-sphere insertion (see `accumulate`); at ±2
     the reference's padded spectrum (pad 2, Fourier-cropped with the stack
-    under crop_to, on the cropped data's scale) is built once and shared
-    by every batch; fit_ref_scale fits its amplitude per particle. lblur_nrot > 1
+    under crop_to) is built once and shared by every batch. lblur_nrot > 1
     with lblur_range: likelihood blurring (lblur_bank)."""
     dev = resolve_device(device)
     n = stack.shape[-1]
@@ -261,10 +259,7 @@ def reconstruct(
     if abs(iewald) >= 2 and ref_volume is not None:
         rv = on(ref_volume)
         if n_rec < n:
-            # a cropped image keeps its mean, so its spectrum shrinks by
-            # (n_rec/n)^2 while a cropped volume's shrinks by (n_rec/n)^3:
-            # n/n_rec puts the reference's projections on the data's scale
-            rv = fourier_crop_3d(rv, (n_rec, n_rec, n_rec)) * (n / n_rec)
+            rv = fourier_crop_3d(rv, (n_rec, n_rec, n_rec))
         ref_fourier = volume_to_fourier(rv, pad=2)
     acc = None
     for i in range(0, B, batch):
@@ -278,8 +273,7 @@ def reconstruct(
             xb, pb, on(ctf_params[sl]), on(subset[sl], torch.int64),
             on(weights[sl]), n_rec, pixel_rec, voltage_kv, cs_mm,
             amplitude_contrast, symmetry, pad, prev=acc, gridding=gridding,
-            iewald=iewald, lblur=lblur, ref_fourier=ref_fourier,
-            fit_ref_scale=fit_ref_scale)
+            iewald=iewald, lblur=lblur, ref_fourier=ref_fourier)
     return finalize(acc, n_rec, pad, wiener, gridding)
 
 

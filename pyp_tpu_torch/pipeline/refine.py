@@ -124,18 +124,15 @@ def reconstruct_banded(stack, poses, ctf_params, pixel, high_res, rc_kwargs,
                           device=device, **rc_kwargs)
     # shell k on the crop grid IS data wavenumber k: remap the FSC onto the
     # data shell axis (zero beyond the band) and upsample the maps by
-    # centered Fourier pad. A map inserted from cropped images comes out
-    # n/n_rec times the full-size map's density; n_rec/n restores the
-    # scale, so every iteration's map (the reference of the next) has one
+    # centered Fourier pad
     dev = out.fsc.device
     fsc_full = torch.zeros(n_data // 2, dtype=torch.float32, device=dev)
     fsc_full[:n_rec // 2] = out.fsc
     shape = (n_data, n_data, n_data)
-    scale = n_rec / n_data
     return out._replace(
-        volume=fourier_crop_3d(out.volume, shape) * scale,
-        half1=fourier_crop_3d(out.half1, shape) * scale,
-        half2=fourier_crop_3d(out.half2, shape) * scale,
+        volume=fourier_crop_3d(out.volume, shape),
+        half1=fourier_crop_3d(out.half1, shape),
+        half2=fourier_crop_3d(out.half2, shape),
         fsc=fsc_full,
         freqs=torch.arange(n_data // 2, dtype=torch.float32, device=dev)
         / n_data)
@@ -491,13 +488,9 @@ def refinement_iteration(
         )
         if abs(rc_kwargs["iewald"]) >= 2:
             # reference-based Ewald (IEWALD ±2): the current map predicts
-            # the opposite sphere branch during insertion. Normalized
-            # particles (reconstruct_norm) lose the starting map's scale,
-            # so there the reference's amplitude is fitted to each
-            # particle; inserted unscaled, a starting map ~100x the
-            # normalized particles takes over the map and the loop diverges
+            # the opposite sphere branch during insertion, its amplitude
+            # fitted to each particle (insert_slices_halves)
             rc_kwargs["ref_volume"] = ref_volume
-            rc_kwargs["fit_ref_scale"] = bool(params.get("reconstruct_norm"))
         if params.get("reconstruct_lblur"):
             # likelihood blurring: insert over a psi-offset bank
             rc_kwargs["lblur_range"] = float(

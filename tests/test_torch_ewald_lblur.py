@@ -13,7 +13,15 @@ sample is inside the sphere (tests/test_torch_reconstruct.py); maps atol
 300 kV: the oracles' 1 kV makes chi reach ~10^3 rad, where the two
 packages' float32 CTFs differ in the fourth digit (the strong curvature
 itself is compared through insert_slices_halves). The oracles keep the
-JAX tests' bars."""
+JAX tests' bars.
+
+At IEWALD ±2 the port scales the reference per particle by
+`ref_amplitude`; the JAX package inserts it unscaled. The parity tests
+patch that amplitude to 1 (`unfitted`), which is the JAX insertion, and
+test_fitted_insertion_is_the_jax_insertion_of_the_scaled_reference holds
+the fitted insertion to the JAX insertion of each particle with its
+reference scaled by the least-squares amplitude computed from JAX's
+gathers."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,12 +31,15 @@ from test_refine3d import N, PIXEL, make_particles, make_volume
 from test_torch_reconstruct import bandlimit, inside_nyquist
 
 from pyp_tpu.core.ctf import wavelength
+from pyp_tpu.core.filters import normalize_images
 from pyp_tpu.core.geometry import euler_to_matrix as j_e2m
 from pyp_tpu.ops import fourier_slice as jfs
 from pyp_tpu.ops import reconstruct as jrec
+from pyp_tpu.pipeline import refine as jref
 from pyp_tpu_torch.core.geometry import euler_to_matrix
 from pyp_tpu_torch.ops import fourier_slice as tfs
 from pyp_tpu_torch.ops import reconstruct as trec
+from pyp_tpu_torch.pipeline import refine as tref
 
 PAD = 2
 VOLTAGE = 1.0  # a 0.39 Å wavelength: strong curvature at box 32
@@ -70,6 +81,14 @@ def vol():
     return make_volume(seed=0)
 
 
+@pytest.fixture
+def unfitted(monkeypatch):
+    """The reference inserted unscaled at IEWALD ±2, as the JAX package
+    inserts it."""
+    monkeypatch.setattr(tfs, "ref_amplitude",
+                        lambda pred, F: torch.ones(F.shape[0], device=F.device))
+
+
 class TestProjections:
     @pytest.mark.parametrize("c", [0.0, 0.02, -0.01])
     def test_project_ewald(self, vol, c):
@@ -109,7 +128,7 @@ class TestInsertion:
 
     @pytest.mark.parametrize("c,ref_based", [(0.02, False), (-0.02, False),
                                              (0.015, True)])
-    def test_insert_slices_halves_ewald(self, vol, c, ref_based):
+    def test_insert_slices_halves_ewald(self, vol, c, ref_based, unfitted):
         imgs, ctfs, subset, weights = self._inputs()
         Rj, Rt = rotations(8, 7)
         kj, kt = {}, {}
@@ -151,12 +170,19 @@ class TestAccumulate:
         {"doses": np.linspace(5.0, 40.0, 12).astype(np.float32)},
         {"iewald": 1},
         {"iewald": -2, "ref": True},
+        {"iewald": 2, "ref": True, "norm": True},
         {"lblur": ((-4.0, 0.0, 4.0), (0.25, 0.5, 0.25)), "symmetry": "C2"},
-    ], ids=["doses", "iewald1", "iewald-2", "lblur_c2"])
-    def test_accumulate_options(self, particles, kw):
+    ], ids=["doses", "iewald1", "iewald-2", "iewald2_normalized", "lblur_c2"])
+    def test_accumulate_options(self, particles, kw, unfitted):
+        """iewald2_normalized: the loop's reconstruct_norm insertion,
+        particles at zero mean and unit variance and the reference on its
+        own scale (100x theirs), inserted unscaled as the JAX loop does."""
         v, stack, cp, poses = particles
         kw = dict(kw)
         use_ref = kw.pop("ref", False)
+        if kw.pop("norm", False):
+            stack = np.asarray(normalize_images(jnp.asarray(stack)))
+            v = 100.0 * v / np.abs(v).max()
         sub, w = np.arange(12) % 2, np.linspace(0.5, 1.0, 12).astype(np.float32)
         kj, kt = dict(kw), dict(kw)
         if "doses" in kw:
@@ -177,18 +203,33 @@ class TestAccumulate:
         {"iewald": 2, "ref": True, "crop_to": 16},
         {"lblur_nrot": 5, "lblur_range": 8.0},
     ], ids=["iewald2_crop", "lblur"])
-    def test_reconstruct_options(self, particles, kw):
+    def test_reconstruct_options(self, particles, kw, unfitted):
         v, stack, cp, poses = particles
-        kw, kj = dict(kw), {}
+        kw = dict(kw)
         if kw.pop("ref", False):
             kw["ref_volume"] = v
-            # the port puts a cropped reference on the cropped particles'
-            # scale (n/n_rec); the JAX package crops it as it is
-            kj["ref_volume"] = v * (N / kw.get("crop_to", N))
         ref = jrec.reconstruct(jnp.asarray(stack), jnp.asarray(poses), cp,
-                               PIXEL, batch=5, **{**kw, **kj})
+                               PIXEL, batch=5, **kw)
         out = trec.reconstruct(stack, poses, cp, PIXEL, batch=5,
                                device="cpu", **kw)
+        for f in ("volume", "half1", "half2"):
+            close(getattr(out, f), getattr(ref, f))
+        np.testing.assert_allclose(out.fsc.numpy(), np.asarray(ref.fsc), atol=1e-3)
+
+    @pytest.mark.parametrize("kw", [{}, {"iewald": 2, "ref": True}],
+                             ids=["plain", "iewald2"])
+    def test_reconstruct_banded(self, particles, kw, unfitted):
+        """The loop's band-limited reconstruction (16 Å at box 32: the crop
+        grid is 16) gives the JAX loop's maps, on its scale, and FSC."""
+        v, stack, cp, poses = particles
+        kw = dict(kw)
+        if kw.pop("ref", False):
+            kw["ref_volume"] = v
+        kw.update(subset=np.arange(12) % 2, batch=5)
+        ref = jref.reconstruct_banded(stack, poses, cp, PIXEL, 16.0, kw)
+        out = tref.reconstruct_banded(stack, poses, cp, PIXEL, 16.0, kw,
+                                      device="cpu")
+        assert out.volume.shape == (N,) * 3
         for f in ("volume", "half1", "half2"):
             close(getattr(out, f), getattr(ref, f))
         np.testing.assert_allclose(out.fsc.numpy(), np.asarray(ref.fsc), atol=1e-3)
@@ -295,22 +336,62 @@ class TestEwaldOracles:
         cc_plus = self._run(v, imgs, poses, cp, 2, v)
         assert cc_minus > cc_plus + 0.01, (cc_minus, cc_plus)
 
-    def test_reference_scale_is_fitted(self, vol):
-        """fit_ref_scale: a reference 37 times off the particles' scale
-        (a normalized stack, an outside map) gives what the reference on
-        the particles' scale gives, and beats the unfitted one."""
+    def test_reference_scale_is_fitted(self, vol, monkeypatch):
+        """A reference 37 times off the particles' scale (a normalized
+        stack, an outside map) gives what the reference on the particles'
+        scale inserted unscaled gives, and beats the unscaled one."""
         imgs, poses, cp = self._split_data(vol, +1)
 
-        def run(ref, fit):
+        def run(ref):
             out = trec.reconstruct(imgs, poses, cp, PIXEL, voltage_kv=VOLTAGE,
                                    iewald=2, wiener=0.2, ref_volume=ref,
-                                   fit_ref_scale=fit, device="cpu")
+                                   device="cpu")
             return out.volume.numpy()
 
-        exact = run(vol, False)
-        fitted = run(37.0 * vol, True)
+        fitted = run(37.0 * vol)
+        monkeypatch.setattr(tfs, "ref_amplitude",
+                            lambda pred, F: torch.ones(F.shape[0]))
+        exact, off = run(vol), run(37.0 * vol)
         assert _cc(fitted, exact) > 0.999, _cc(fitted, exact)
-        assert _cc(fitted, vol) > _cc(run(37.0 * vol, False), vol) + 0.1
+        assert _cc(fitted, vol) > _cc(off, vol) + 0.1, (_cc(fitted, vol), _cc(off, vol))
+
+    def test_fitted_insertion_is_the_jax_insertion_of_the_scaled_reference(self, vol):
+        """The port's fitted IEWALD-2 insertion of each particle equals the
+        JAX insertion of that particle with the reference times a_i, the
+        least-squares amplitude of the reference's predicted image, computed
+        here from JAX's gathers (a 37x reference and noisy particles)."""
+        B, c = 8, curvature()
+        imgs, poses, cp = self._split_data(vol, +1, n=B, seed=11)
+        imgs = imgs + 0.2 * imgs.std() * np.random.RandomState(12).randn(
+            *imgs.shape).astype(np.float32)
+        chi = np.asarray(jrec._chi_grids(N, PIXEL, jnp.asarray(cp), VOLTAGE, 2.7, 0.07))
+        Rj = j_e2m(*(jnp.asarray(poses[:, k]) for k in range(3)))
+        Fj = jfs.image_to_fourier(jnp.asarray(imgs))
+        ref_j = jfs.volume_to_fourier(jnp.asarray(37.0 * vol), 2)
+        ky = np.fft.fftfreq(N) * N
+        g2 = (ky[:, None] ** 2 + np.arange(N // 2 + 1)[None, :] ** 2).astype(np.float32)
+        curve = c * g2[None, :, :, None] * np.asarray(Rj)[:, 2, ::-1][:, None, None, :]
+        q = np.asarray(jfs.slice_coords(Rj, N))
+        Rp = np.asarray(jfs.gather_3d_hermitian(ref_j, jnp.asarray(q + curve), scale=2.0))
+        Rm = np.asarray(jfs.gather_3d_hermitian(ref_j, jnp.asarray(-q + curve), scale=2.0))
+        ctfp = 0.5j * np.exp(1j * chi)
+        pred = ctfp * Rp + np.conj(ctfp) * np.conj(Rm)
+        a = np.maximum(np.sum((np.conj(pred) * np.asarray(Fj)).real, (1, 2))
+                       / np.sum(np.abs(pred) ** 2, (1, 2)), 0.0)
+        assert np.all(a > 0.01) and np.all(a < 0.1), a
+        sub, w = np.arange(B) % 2, np.ones(B, np.float32)
+        want = [0.0] * 4
+        for i in range(B):
+            parts = jfs.insert_slices_halves(
+                Fj[i:i + 1], jnp.ones((1, N, N // 2 + 1)), Rj[i:i + 1],
+                jnp.asarray(sub[i:i + 1]), jnp.asarray(w[i:i + 1]), N,
+                ewald_c=c, ref_fourier=ref_j * a[i], chi=jnp.asarray(chi[i:i + 1]))
+            want = [x + np.asarray(y) for x, y in zip(want, parts)]
+        out = tfs.insert_slices_halves(
+            tfs.image_to_fourier(t(imgs)), torch.ones((B, N, N // 2 + 1)), t(Rj),
+            t(sub), t(w), N, ewald_c=c, ref_fourier=t(ref_j), chi=t(chi))
+        for o, r in zip(out, want):
+            close(o, r, mask=inside_nyquist(2 * N))
 
     def test_iewald2_without_reference_degrades_to_simple(self, vol):
         imgs, poses, cp = self._split_data(vol, +1, n=16)

@@ -32,6 +32,7 @@ from pyp_tpu.io import cistem, mrc
 from pyp_tpu.pipeline import refine as jref
 from pyp_tpu.postprocess import core as jpost
 from pyp_tpu_torch import cli as tcli
+from pyp_tpu_torch.ops import fourier_slice as tfs
 from pyp_tpu_torch.pipeline import refine as tref
 from pyp_tpu_torch.postprocess import core as tpost
 from pyp_tpu_torch.tools import e2e_spa
@@ -183,6 +184,18 @@ def test_mode_mask_from_maps_half_maps(tmp_path, monkeypatch, capsys, halves):
         atol=1e-5)
 
 
+def test_mode_mask_refuses_a_missing_model_path(tmp_path, monkeypatch, halves):
+    """A -model_path that names no file is an error, even where maps/
+    holds a half-map pair that could be masked instead."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "maps").mkdir()
+    mrc.write(halves[0], "maps/ds_r01_02_half1.mrc", pixel_size=PIXEL)
+    mrc.write(halves[1], "maps/ds_r01_02_half2.mrc", pixel_size=PIXEL)
+    assert tcli.main(["mask", "-model_path", "missing.mrc", "-data_set", "ds"],
+                     device="cpu") == 1
+    assert not (tmp_path / "ds_mask.mrc").exists()
+
+
 def test_mode_postprocess(tmp_path, monkeypatch, capsys, halves, same_phases):
     """cli.main(["postprocess", ...]) in each package: the same JSON
     summary and files."""
@@ -235,6 +248,10 @@ def problem():
 
 @pytest.fixture(scope="module")
 def option_runs(problem, tmp_path_factory):
+    """The JAX loop and the port's with every option on. The port inserts
+    the IEWALD-2 reference unscaled here, as the JAX loop does
+    (ref_amplitude patched to 1); its fitted insertion is held against the
+    truth by the test_iewald2_loop_* tests."""
     vol, stack, table, start, params = problem
     pdb = e2e_spa.write_pseudo_atom_pdb(
         vol, PIXEL, N ** 3 // 32, tmp_path_factory.mktemp("pdb") / "m.pdb")
@@ -243,9 +260,8 @@ def option_runs(problem, tmp_path_factory):
               "reconstruct_lblur_nrot": 5, "reconstruct_lblur_range": 6.0,
               "reconstruct_iewald": 2, "refine_fmatch": True,
               "model_fit": pdb, "plot_per_item": False,
-              # the particles keep the starting map's scale, so the port
-              # inserts the IEWALD-2 reference unscaled, as the JAX loop
-              # does (test_iewald2_loop_with_normalized_particles)
+              # normalized particles make the JAX loop's IEWALD-2 insertion
+              # diverge (test_iewald2_loop_with_normalized_particles)
               "reconstruct_norm": False}
     mp = pytest.MonkeyPatch()
     mp.setenv("PYP_TPU_DISABLE_SPMD", "1")
@@ -256,8 +272,12 @@ def option_runs(problem, tmp_path_factory):
     finally:
         mp.undo()
     tdir = tmp_path_factory.mktemp("torch")
-    tout = tref.refine_loop(stack, table.copy(), start, dict(params),
-                            work_dir=tdir, dataset="ds", device="cpu")
+    mp.setattr(tfs, "ref_amplitude", lambda pred, F: torch.ones(F.shape[0]))
+    try:
+        tout = tref.refine_loop(stack, table.copy(), start, dict(params),
+                                work_dir=tdir, dataset="ds", device="cpu")
+    finally:
+        mp.undo()
     return jdir, jout, tdir, tout
 
 
@@ -348,19 +368,58 @@ def test_final_iteration_writes_sharpened_map(tmp_path):
     assert np.isfinite(v).all() and v.std() > 0
 
 
-def test_iewald2_loop_with_normalized_particles(problem, tmp_path):
-    """reconstruct_norm (the default) normalizes the particles, so the
-    starting map is ~100x their scale: the port fits the IEWALD-2
-    reference's amplitude per particle, and its loop ends as close to the
-    truth as the loop without Ewald insertion. (The JAX loop inserts the
-    reference unscaled there and diverges: ROADMAP Queue 3.)"""
+def _iewald2_loop_ccs(problem, tmp_path, monkeypatch, norm):
+    """Pearson cc against the truth of the final map of each loop: JAX and
+    the port at IEWALD 0 and 2, and the port at IEWALD 2 with the
+    reference inserted unscaled as the JAX loop inserts it (ref_amplitude
+    patched to 1)."""
     vol, stack, table, start, params = problem
-    params = {**params, "plot_per_item": False, "reconstruct_norm": True}
-    cc = {}
-    for iew in (0, 2):
-        _, final, hist = tref.refine_loop(
-            stack, table.copy(), start, {**params, "reconstruct_iewald": iew},
-            work_dir=tmp_path / str(iew), dataset="ds", device="cpu")
-        cc[iew] = np.corrcoef(final.numpy().ravel(), vol.ravel())[0, 1]
-    assert cc[2] >= cc[0] - 0.02, cc
+    params = {**params, "plot_per_item": False, "reconstruct_norm": norm}
+    monkeypatch.setenv("PYP_TPU_DISABLE_SPMD", "1")
 
+    def run(pkg, iew, tag):
+        p = {**params, "reconstruct_iewald": iew}
+        if pkg is jref:
+            final = jref.refine_loop(stack, table.copy(), start, p,
+                                     work_dir=tmp_path / tag, dataset="ds")[1]
+        else:
+            final = tref.refine_loop(stack, table.copy(), start, p,
+                                     work_dir=tmp_path / tag, dataset="ds",
+                                     device="cpu")[1].numpy()
+        return np.corrcoef(np.asarray(final).ravel(), vol.ravel())[0, 1]
+
+    cc = {"j0": run(jref, 0, "j0"), "j2": run(jref, 2, "j2"),
+          "t0": run(tref, 0, "t0"), "t2": run(tref, 2, "t2")}
+    monkeypatch.setattr(tfs, "ref_amplitude",
+                        lambda pred, F: torch.ones(F.shape[0]))
+    cc["t2_unscaled"] = run(tref, 2, "t2u")
+    return cc
+
+
+def test_iewald2_loop_with_normalized_particles(problem, tmp_path,
+                                               monkeypatch):
+    """reconstruct_norm (the default) normalizes the particles, so they
+    lose the starting map's scale. The JAX loop inserts the IEWALD-2
+    reference unscaled there, and its final map falls far from the truth
+    against its own loop without Ewald insertion; the port's loop with the
+    reference unscaled gives the same cc, so the fall is the JAX loop's. The
+    port fits the reference's amplitude per particle, and its loop ends as
+    close to the truth as without Ewald insertion."""
+    cc = _iewald2_loop_ccs(problem, tmp_path, monkeypatch, True)
+    assert abs(cc["t0"] - cc["j0"]) < 0.02, cc
+    assert abs(cc["t2_unscaled"] - cc["j2"]) < 0.02, cc
+    assert cc["j2"] < cc["j0"] - 0.3, cc
+    assert cc["t2"] >= cc["t0"] - 0.02, cc
+
+
+def test_iewald2_loop_with_unnormalized_particles(problem, tmp_path,
+                                                 monkeypatch):
+    """Without normalization the starting map predicts the particles at
+    their scale (fitted amplitude ~1), but the first reconstruction does
+    not (~0.4 at this size): the JAX loop's unscaled IEWALD-2 insertion
+    falls below its loop without Ewald insertion, the port's unscaled loop
+    gives the same cc, and the port's fitted loop does not fall."""
+    cc = _iewald2_loop_ccs(problem, tmp_path, monkeypatch, False)
+    assert abs(cc["t2_unscaled"] - cc["j2"]) < 0.02, cc
+    assert cc["j2"] < cc["j0"] - 0.1, cc
+    assert cc["t2"] >= cc["t0"] - 0.02, cc

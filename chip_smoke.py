@@ -2,8 +2,9 @@
 from the sources in this checkout, checks each against its plain PyTorch
 version at the shapes the main path gives it, then drives the SPA
 refinement loop through `pyp_tpu_torch.cli.main` on a synthetic
-4,096-particle, box-128 dataset, once per engine, and checks each result
-against the ground truth:
+4,096-particle, box-128 dataset, once per engine, and the preprocessing
+path (movies to a particle stack) on three synthetic 40 x 4096² movies,
+and checks each result against the ground truth:
 
   slice      the gather engine (the path of the shift_scored_match kernel);
   frm_polar  one FRM batch with the matmul and the gather polar sampler;
@@ -19,7 +20,21 @@ against the ground truth:
   postprocess  the `postprocess` (with local resolution), `mask` and
              `fsc` modes on frm_slice's final half maps, held to a masked
              FSC no coarser than the unmasked one plus a shell, a negative
-             B and a median local resolution inside [2 px, 20 Å].
+             B and a median local resolution inside [2 px, 20 Å];
+  spr_synthesize  three K3-size movies (40 x 4096² at 1 Å/px, ~256
+             particles each) with a planted drift, CTF and particle grid,
+             written as MRC mode 0;
+  spr        the `spr` mode on them, held to the planted truth: drift RMS
+             error < 0.5 px, mean defocus within 1%, astigmatism angle
+             within 10°, pick recall and precision >= 0.8, the three
+             bundles and the merge summary written; a second call resumes
+             and takes under a tenth of the first;
+  spr_layers  each preprocessing layer's time on one of the movies, and
+             micrographs per minute for alignment + CTF;
+  extract    the `extract` mode: as many normalized particles as picks,
+             the table's defocus equal to the fits, both files read back;
+  spr_refine  the extracted stack through the FRM protocol (reported, no
+             bar): movies to a map.
 
     python3 chip_smoke.py
 
@@ -496,6 +511,28 @@ def phase_frm_options(data, init):
                            f">= {OPTIONS_CC_BAR}")
 
 
+def _cli_json(argv, cwd):
+    """cli.main(argv, device="cuda") run in `cwd` with stdout captured:
+    (the JSON object it printed, wall seconds)."""
+    import contextlib
+    import io
+
+    from pyp_tpu_torch import cli
+
+    buf = io.StringIO()
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc, wall = _sync_s(lambda: cli.main(argv, device="cuda"))
+    finally:
+        os.chdir(here)
+    if rc != 0:
+        raise RuntimeError(f"cli.main({argv}) returned {rc}:\n{buf.getvalue()}")
+    text = buf.getvalue()
+    return json.loads(text[text.index("{"):]), wall
+
+
 LOCRES_MAX_A = 20.0
 
 
@@ -506,12 +543,8 @@ def phase_postprocess(final_halves):
     FSC(0.143) no coarser than the unmasked one plus one Fourier shell, a
     negative finite B, the median local resolution in [2 px, 20 Å], every
     output file present."""
-    import contextlib
-    import io
-
     import torch
 
-    from pyp_tpu_torch import cli
     from pyp_tpu_torch.core import fsc as fsc_mod
     from pyp_tpu_torch.io import mrc
     from pyp_tpu_torch.postprocess import core as post
@@ -525,14 +558,6 @@ def phase_postprocess(final_halves):
     cwd = os.getcwd()
     row = {"phase": "postprocess", "unmasked_fsc143_A": unmasked_a}
 
-    def mode(argv):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc, s = _sync_s(lambda: cli.main(argv, device="cuda"))
-        if rc != 0:
-            raise RuntimeError(f"cli.main({argv}) returned {rc}")
-        return json.loads(buf.getvalue().strip().splitlines()[-1]), s
-
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as work:
         os.makedirs(os.path.join(work, "maps"))
@@ -541,11 +566,13 @@ def phase_postprocess(final_halves):
                       pixel_size=pixel)
         os.chdir(work)
         try:
-            out, row["postprocess_s"] = mode(["postprocess", "-sharpen_locres"])
-            mk, row["mask_s"] = mode(["mask", "-data_set", "dataset"])
-            fs, row["fsc_s"] = mode(["fsc", "maps/dataset_r01_05_half1.mrc",
-                                     "maps/dataset_r01_05_half2.mrc",
-                                     "-fsc_mask", "dataset_mask.mrc"])
+            out, row["postprocess_s"] = _cli_json(
+                ["postprocess", "-sharpen_locres"], work)
+            mk, row["mask_s"] = _cli_json(["mask", "-data_set", "dataset"], work)
+            fs, row["fsc_s"] = _cli_json(
+                ["fsc", "maps/dataset_r01_05_half1.mrc",
+                 "maps/dataset_r01_05_half2.mrc", "-fsc_mask",
+                 "dataset_mask.mrc"], work)
             files = ["maps/dataset_sharpened.mrc", "maps/dataset_fsc_masked.txt",
                      "maps/dataset_locres.mrc", "maps/dataset_locfilt.mrc",
                      "dataset_mask.mrc", "fsc.txt"]
@@ -577,6 +604,327 @@ def phase_postprocess(final_halves):
         raise RuntimeError(f"missing outputs {missing}")
 
 
+# ---- preprocessing: movies to a particle stack -----------------------------
+DRIFT_RMS_BAR_PX, DEFOCUS_BAR_REL, ANGAST_BAR_DEG = 0.5, 0.01, 10.0
+PICK_RECALL_BAR, PICK_PRECISION_BAR, RESUME_BAR = 0.8, 0.8, 0.1
+BG_MEAN_BAR, BG_VAR_BAR = 0.05, 0.05
+
+
+class _StageTimes:
+    """A logging handler that collects the `Timer` lines of the
+    preprocessing stages (name, seconds) and, at the end of each
+    micrograph's last stage, the device memory peak since the one
+    before."""
+
+    def __init__(self):
+        import logging
+
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.on_message(record.getMessage())
+
+        self.rows, self.peaks = [], []
+        self.handler = Handler()
+        self.logger = logging.getLogger("pyp_tpu_torch.timer")
+
+    def on_message(self, msg):
+        import torch
+
+        name, sep, tail = msg.rpartition(" took ")
+        if not sep:
+            return
+        self.rows.append((name, float(tail.rstrip("s"))))
+        if name == "particle picking":
+            self.peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def phase_spr_synthesize(volume, movies_dir):
+    from pyp_tpu_torch.tools import e2e_spr
+
+    kw = {k: v for k, v in e2e_spr.MOVIES.items() if k != "n_movies"}
+    (truth, nbytes), seconds = _sync_s(lambda: e2e_spr.write_movies(
+        movies_dir, volume, n_movies=e2e_spr.MOVIES["n_movies"],
+        device="cuda", **kw))
+    emit({"phase": "spr_synthesize", "seconds": seconds, "bytes": nbytes,
+          "movies": len(truth), "frames": kw["n_frames"], "size": kw["size"],
+          "particles_planted": sum(len(t["centres"]) for t in truth.values())})
+    return truth
+
+
+def phase_spr(movies_dir, project, truth):
+    """The `spr` mode on the movie set, held to the planted truth, then
+    the same call again, which must only resume."""
+    import torch
+
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.tools import e2e_spr
+
+    argv = e2e_spr.SPR_ARGS + ["-data_path",
+                               os.path.join(movies_dir, "movie_*.mrc")]
+    os.makedirs(project)
+    torch.cuda.reset_peak_memory_stats()
+    with _StageTimes() as stages:
+        merge, wall = _cli_json(argv, project)
+    per_stage = {}
+    for name, sec in stages.rows:
+        per_stage.setdefault(name, []).append(sec)
+    failures = []
+    for i, (name, t) in enumerate(sorted(truth.items())):
+        meta = ItemMetadata(name, project).load()
+        missing = [k for k in ("drift", "average", "ctf", "box")
+                   if not meta.is_done(k)]
+        if missing:
+            raise RuntimeError(f"{name}: bundle lacks {missing}")
+        c = meta["ctf"]
+        recall, precision = e2e_spr.pick_recall_precision(
+            meta["box"][:, :2], t["centres"], e2e_spr.PARTICLE_RADIUS_A / 2)
+        row = {
+            "phase": "spr", "micrograph": name,
+            "align_s": per_stage["movie alignment"][i],
+            "ctf_s": per_stage["CTF estimation"][i],
+            "pick_s": per_stage["particle picking"][i],
+            "max_memory_allocated_GiB": stages.peaks[i],
+            "drift_rms_err_px": e2e_spr.drift_rms_error(meta["drift"],
+                                                        t["trajectory"]),
+            "defocus_fit_A": [float(c[0]), float(c[1])],
+            "defocus_planted_A": [t["df1"], t["df2"]],
+            "defocus_mean_rel_err": abs(
+                (c[0] + c[1]) / (t["df1"] + t["df2"]) - 1.0),
+            "angast_fit_deg": float(c[2]), "angast_planted_deg": t["angast"],
+            "angast_err_deg": e2e_spr.angle_error_deg(float(c[2]), t["angast"]),
+            "fit_res_A": float(c[5]), "picks": int(len(meta["box"])),
+            "planted": len(t["centres"]), "recall": recall,
+            "precision": precision}
+        emit(row)
+        for key, ok in (("drift_rms_err_px", row["drift_rms_err_px"] < DRIFT_RMS_BAR_PX),
+                        ("defocus_mean_rel_err", row["defocus_mean_rel_err"] < DEFOCUS_BAR_REL),
+                        ("angast_err_deg", row["angast_err_deg"] < ANGAST_BAR_DEG),
+                        ("recall", recall >= PICK_RECALL_BAR),
+                        ("precision", precision >= PICK_PRECISION_BAR)):
+            if not ok:
+                failures.append(f"{name}: {key} = {row[key]}")
+    with _StageTimes() as again:
+        merge2, wall2 = _cli_json(argv, project)
+    emit({"phase": "spr", "seconds": wall, "micrographs": merge["micrographs"],
+          "particles": merge["particles"], "missing": merge["missing"],
+          "mean_ctf_fit_res_A": merge["mean_ctf_fit_res"],
+          "micrographs_per_min": 60.0 * merge["micrographs"] / wall,
+          "resume_seconds": wall2, "resume_stages_run": len(again.rows),
+          "resume_particles": merge2["particles"]})
+    if merge["micrographs"] != len(truth) or merge["missing"]:
+        failures.append(f"merge summary {merge}")
+    if again.rows or merge2 != merge:
+        failures.append(f"the second call ran stages {again.rows} or merged "
+                        f"{merge2}")
+    if not wall2 < RESUME_BAR * wall:
+        failures.append(f"the resumed call took {wall2:.2f} s, not under "
+                        f"{RESUME_BAR} of {wall:.2f} s")
+    if failures:
+        raise RuntimeError("spr bars failed: " + "; ".join(failures))
+
+
+def phase_spr_layers(movies_dir):
+    """Device-synchronised medians of each preprocessing layer on one
+    movie at full size, the zoom DFT beside a plain irfft2 of the same
+    cross spectra, micrographs per minute for alignment + CTF, and one
+    direct `process_micrograph` call that must upload the movie once."""
+    import torch
+
+    from pyp_tpu_torch.config import schema
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.ops import ctf_fit, motion, pick
+    from pyp_tpu_torch.pipeline import spr
+
+    path = os.path.join(movies_dir, "movie_00.mrc")
+    (raw, load_s) = _sync_s(lambda: spr.load_movie(path, dtype=None))
+    frames, upload_s = _sync_s(lambda: spr._upload(raw, "cuda"))
+    n, ny, nx = frames.shape
+    row = {"phase": "spr_layers", "frames": [n, ny, nx],
+           "load_movie_s": load_s, "upload_s": upload_s,
+           "remove_hot_pixels_ms": _median_ms(
+               lambda: pick.remove_hot_pixels(frames), reps=3)}
+    one = frames[0].reshape(-1)
+    half = one.numel() // 2
+    row["median_sort_ms"] = _median_ms(lambda: pick.median(one), reps=5)
+    row["median_kthvalue_ms"] = _median_ms(
+        lambda: 0.5 * (torch.kthvalue(one, half).values
+                       + torch.kthvalue(one, half + 1).values), reps=3)
+    binning, iters = 2, 8
+    row["stack_rfft2_ms"] = _median_ms(lambda: motion._spectra(frames, binning),
+                                       reps=3)
+    F_full, F_small = motion._spectra(frames, binning)
+    nys, nxs = ny // binning, nx // binning
+    Fw = F_small * motion._weight_filter(nys, nxs, 1.0 * binning, 1500.0, 0.0,
+                                         0.0, frames.device)
+    del F_small
+    found = {}
+    for label, zoom in (("zoom_dft", True), ("irfft2", False)):
+        found[label] = motion._align_spectra(
+            Fw, nys, nxs, max_iters=iters, search_radius=48.0 / binning,
+            zoom=zoom)[0]
+        row[f"align_iteration_{label}_ms"] = _median_ms(
+            lambda: motion._align_spectra(
+                Fw, nys, nxs, max_iters=iters, search_radius=48.0 / binning,
+                zoom=zoom), reps=5) / iters
+    row["zoom_vs_irfft2_max_shift_diff_px"] = float(
+        (found["zoom_dft"] - found["irfft2"]).abs().max())
+    del Fw
+    shifts = found["zoom_dft"] * binning
+    doses = torch.arange(1, n + 1, dtype=torch.float32, device="cuda")
+    row["average_spectra_ms"] = _median_ms(
+        lambda: motion._average_spectra_scan(F_full, shifts, doses, ny, nx),
+        reps=3)
+    avg = motion._average_spectra_scan(F_full, shifts, doses, ny, nx)
+    del F_full
+    row["periodogram_ms"] = _median_ms(lambda: ctf_fit.periodogram(avg, 512),
+                                       reps=5)
+    power = ctf_fit.periodogram(avg, 512)
+    row["fit_ctf_ms"] = _median_ms(
+        lambda: ctf_fit.fit_ctf(power, 1.0, device="cuda"), reps=3)
+    row["pick_particles_ms"] = _median_ms(
+        lambda: pick.pick_particles(avg, particle_radius_px=45, max_picks=1024,
+                                    edge_px=64, device="cuda"), reps=3)
+
+    # what the JAX package's bench times on its preprocess axis: alignment
+    # of a device-resident movie, then the CTF fit of its average
+    def align():
+        return motion.align_movie_large(frames, pixel_size=1.0, binning=2,
+                                        device="cuda").average
+
+    torch.cuda.reset_peak_memory_stats()
+    row["align_movie_large_ms"] = _median_ms(align, reps=3)
+    row["align_max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    row["fit_ctf_micrograph_ms"] = _median_ms(
+        lambda: ctf_fit.fit_ctf_micrograph(avg, 1.0, device="cuda"), reps=3)
+    row["micrographs_per_min_align_ctf"] = 60e3 / (
+        row["align_movie_large_ms"] + row["fit_ctf_micrograph_ms"])
+    del frames, avg, power
+    torch.cuda.empty_cache()
+
+    params = schema.defaults()
+    params.update(scope_pixel=1.0, detect_rad=45.0, detect_thresh=3.0,
+                  extract_box=128, plot_per_item=False)
+    with tempfile.TemporaryDirectory() as work:
+        summary, row["process_micrograph_s"] = _sync_s(
+            lambda: spr.process_micrograph({"name": "one", "frames": raw},
+                                           params, work, device="cuda"))
+        # the host's share: reading and writing the compressed bundle
+        meta = ItemMetadata("one", work).load()
+        _, row["bundle_read_average_s"] = _sync_s(lambda: meta["average"])
+        _, row["bundle_save_s"] = _sync_s(meta.save)
+    row["frame_uploads"] = summary["frame_uploads"]
+    emit(row)
+    if summary["frame_uploads"] != 1:
+        raise RuntimeError(f"process_micrograph uploaded the movie "
+                           f"{summary['frame_uploads']} times")
+    if not row["zoom_vs_irfft2_max_shift_diff_px"] < 0.05:
+        raise RuntimeError("the zoom DFT and the plain irfft2 disagree on the "
+                           f"shifts by {row['zoom_vs_irfft2_max_shift_diff_px']} px")
+
+
+def phase_extract(project, truth):
+    """The `extract` mode on the project `spr` filled: stack.mrc +
+    stack.cistem, read back and held to the picks and the fits."""
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    out, wall = _cli_json(["extract"], project)
+    stack = mrc.read(os.path.join(project, "stack.mrc"))
+    table = cistem.read_parameters(os.path.join(project, "stack.cistem"))
+    metas = [ItemMetadata(name, project).load() for name in sorted(truth)]
+    picks = sum(len(m["box"]) for m in metas)
+    box = stack.shape[-1]
+    ax = np.arange(box) - box // 2
+    bg = np.sqrt(ax[:, None] ** 2 + ax[None, :] ** 2) >= 0.375 * box + 2.0
+    bg_mean = stack[:, bg].mean(axis=1)
+    bg_var = stack[:, bg].var(axis=1)
+    fits = np.concatenate([np.repeat(m["ctf"][None, :3], len(m["box"]), 0)
+                           for m in metas])
+    got = np.stack([table["defocus_1"], table["defocus_2"],
+                    table["defocus_angle"]], 1)
+    row = {"phase": "extract", "seconds": wall, "particles": int(len(stack)),
+           "picks": int(picks), "particles_per_s": len(stack) / wall,
+           "box": int(box), "finite": bool(np.isfinite(stack).all()),
+           "bg_mean_max_abs": float(np.abs(bg_mean).max()),
+           "bg_var_max_rel_err": float(np.abs(bg_var - 1.0).max()),
+           "defocus_columns_max_abs_diff": float(np.abs(got - fits).max())}
+    emit(row)
+    if not (out["particles"] == len(stack) == len(table["defocus_1"]) == picks
+            and stack.shape[1:] == (128, 128) and row["finite"]):
+        raise RuntimeError(f"extract wrote {stack.shape} for {picks} picks")
+    if not (row["bg_mean_max_abs"] < BG_MEAN_BAR
+            and row["bg_var_max_rel_err"] < BG_VAR_BAR):
+        raise RuntimeError(f"particle backgrounds are not normalized: {row}")
+    if not row["defocus_columns_max_abs_diff"] < 0.01:
+        raise RuntimeError("the table's defocus columns differ from the fits")
+
+
+def phase_spr_refine(project, volume):
+    """The extracted stack and table with a 20 Å low-pass of the truth as
+    the starting map through the FRM protocol: movies to a map. Run twice:
+    on the stack as `extract` writes it (contrast inverted, the mode's
+    default) and on its negative, the micrograph's own contrast, which is
+    what the refinement's CTF model (-sin chi) describes. Reported, not
+    held to a bar (a few hundred particles)."""
+    import shutil
+
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.tools import e2e_spa, e2e_spr, profile_refine
+    from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS, SLICE
+
+    truth = e2e_spr.with_envelope(volume, e2e_spr.MOVIES["envelope"])
+    init = e2e_spa.starting_map(truth, SLICE["pixel"], e2e_spa.START_RESOLUTION)
+    stack = mrc.read(os.path.join(project, "stack.mrc"))
+    cwd = os.getcwd()
+    for contrast, sign in (("as_extracted", 1.0), ("micrograph", -1.0)):
+        with tempfile.TemporaryDirectory() as work:
+            shutil.copy(os.path.join(project, "stack.cistem"), work)
+            mrc.write(sign * stack, os.path.join(work, "stack.mrc"),
+                      pixel_size=SLICE["pixel"])
+            mrc.write(init, os.path.join(work, "initial_model.mrc"),
+                      pixel_size=SLICE["pixel"])
+            os.chdir(work)
+            try:
+                iters, wall = _sync_s(
+                    lambda: profile_refine.drive(FRM_ARGS, "cuda"))
+            finally:
+                os.chdir(cwd)
+            last = max(iters)
+            final = mrc.read(os.path.join(work, "maps",
+                                          f"dataset_r01_{last:02d}.mrc"))
+        emit({"phase": "spr_refine", "contrast": contrast, "seconds": wall,
+              "particles": int(len(stack)), "iterations": sorted(iters),
+              "final_fsc143_A": iters[last]["fsc143_A"],
+              "cc_start_10A": e2e_spa.masked_cc(init, truth, SLICE["pixel"], 10.0),
+              "cc_final_10A": e2e_spa.masked_cc(final, truth, SLICE["pixel"], 10.0)})
+        if final.shape != (SLICE["box"],) * 3 or not np.isfinite(final).all():
+            raise RuntimeError(f"spr_refine's final map has shape "
+                               f"{final.shape} or non-finite values")
+
+
+def phase_preprocess(volume):
+    """The preprocessing phases on one movie set in a temporary directory."""
+    with tempfile.TemporaryDirectory() as root:
+        movies_dir = os.path.join(root, "movies")
+        project = os.path.join(root, "project")
+        truth = phase_spr_synthesize(volume, movies_dir)
+        phase_spr(movies_dir, project, truth)
+        phase_spr_layers(movies_dir)
+        phase_extract(project, truth)
+        phase_spr_refine(project, volume)
+
+
 def main():
     import torch
 
@@ -589,6 +937,9 @@ def main():
     final_halves = phase_frm_slice(data, init)
     phase_frm_options(data, init)
     phase_postprocess(final_halves)
+    volume = data["volume"]
+    del data, init, final_halves
+    phase_preprocess(volume)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "shift_scored_match", "route": "cuda",

@@ -4,12 +4,15 @@ Mirrors `pyp_tpu`'s layout and function names module by module, so each
 function's JAX counterpart is easy to find; `pyp_tpu` stays the reference
 the port is tested against. The package imports `torch` and never `jax`,
 and nothing of `pyp_tpu` either: it keeps its own copies of the JAX-free
-layers it needs (`io.mrc`, `io.cistem`, `io.pdb`, the STAR reader,
-`config`, `utils.log`/`timer`, `stream.web`, and `cli`'s project
-parameters), whose on-disk formats stay byte-compatible, so a run resumes
-across the two packages.
+layers it needs (`io.mrc`, `io.cistem`, `io.pdb`, `io.metadata`, `io.tiff`,
+`io.eer`, `io.dm`, the STAR reader, `config`, `utils.log`/`timer`,
+`stream.web`, `sched`, and `cli`'s project parameters), whose on-disk
+formats stay compatible, so a run resumes across the two packages.
 
-Ported: the SPA gold-standard refinement loop (`pipeline.refine.refine_loop`)
+Ported: SPA preprocessing (`pipeline.spr`: movies through frame alignment
+`ops.motion`, CTF estimation `ops.ctf_fit`, picking `ops.pick` and
+extraction `ops.extract` to a particle stack; the modes `spr`, `extract`
+and `gain`); the SPA gold-standard refinement loop (`pipeline.refine.refine_loop`)
 with both pose-search engines — FRM (`ops.frm`, the default: polar
 matching against a direction bank per half map, then a final sub-lattice
 polish) and gather (whose global search scores through the hand-written
@@ -20,7 +23,9 @@ reconstruction option of the JAX loop (score shaping, likelihood
 blurring, Ewald-sphere insertion, the sharpened final map, model fitting,
 matching projections); and the map modes `postprocess` (mask-corrected
 FSC, sharpening, local resolution), `fsc` and `mask`. The entry points
-(`cli.main`, `pipeline.refine.refine_loop`, `refinement_iteration`,
+(`cli.main`, `pipeline.spr.process_micrograph`, `extract_stack`, the
+alignment, CTF-fit, picking and extraction functions of `ops`,
+`pipeline.refine.refine_loop`, `refinement_iteration`,
 `ops.reconstruct.reconstruct`, `ops.refine3d.refine_batch`,
 `ops.frm.FrmConfig`, `postprocess.core.postprocess_latest`,
 `postprocess.locres.local_resolution`,
@@ -29,20 +34,27 @@ passes `device="cpu"`.
 
 Layout:
   pyp_tpu_torch.config      — parameter schema, CLI flags, project file
-  pyp_tpu_torch.io          — MRC, .cistem and PDB codecs, the STAR reader
+  pyp_tpu_torch.io          — MRC, .cistem and PDB codecs, the STAR reader,
+                              the per-item metadata bundles, the TIFF,
+                              EER and DM3/DM4 movie readers
   pyp_tpu_torch.utils       — logging, timers
   pyp_tpu_torch.stream      — the web platform's RPC client
-  pyp_tpu_torch.core        — geometry, CTF model, FFT crops, filters, FSC
-  pyp_tpu_torch.ops         — Fourier-slice operators, FRM, refine3d,
-                              reconstruct, subvolume extraction, the CUDA
-                              kernels and their build helper
+  pyp_tpu_torch.sched       — job graphs and the local executor
+  pyp_tpu_torch.core        — geometry, CTF model, FFT helpers, filters, FSC
+  pyp_tpu_torch.ops         — motion correction, CTF fitting, picking,
+                              extraction, Fourier-slice operators, FRM,
+                              refine3d, reconstruct, the CUDA kernels and
+                              their build helper
   pyp_tpu_torch.postprocess — masks, the corrected FSC, sharpening, local
                               resolution
-  pyp_tpu_torch.analysis    — score shaping, model fitting, plots
-  pyp_tpu_torch.pipeline    — the refinement loop
+  pyp_tpu_torch.analysis    — score shaping, model fitting, plots, saved
+                              micrograph selections
+  pyp_tpu_torch.pipeline    — preprocessing (spr) and the refinement loop
+  pyp_tpu_torch.tools       — synthetic datasets with ground truth
+                              (e2e_spa, e2e_spr), the refine profiler
   pyp_tpu_torch.state       — state exchange with the JAX package
-  pyp_tpu_torch.cli         — the `refine`, `postprocess`, `fsc` and
-                              `mask` modes
+  pyp_tpu_torch.cli         — the `spr`, `extract`, `gain`, `refine`,
+                              `postprocess`, `fsc` and `mask` modes
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Diagnostic plots of the SPA loop — the port of `plot_fsc`,
-`plot_guinier` and `plot_iteration_changes` of pyp_tpu/analysis/plots.py.
+"""Diagnostic plots of the SPA path — the port of `plot_ctf_fit`,
+`plot_drift`, `plot_fsc`, `plot_guinier` and `plot_iteration_changes` of
+pyp_tpu/analysis/plots.py.
 matplotlib is optional: each function imports it when called and raises
 ImportError where it is missing, which callers turn into a warning and a
 skipped plot."""
@@ -16,6 +17,43 @@ def _pyplot():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def plot_ctf_fit(g_axis, radial, norm_radial, model, fit, out_path):
+    """CTFFIND-style fit panel: radial spectrum vs fitted CTF^2."""
+    plt = _pyplot()
+    fig, axes = plt.subplots(2, 1, figsize=(8, 6), sharex=True)
+    axes[0].plot(g_axis, radial, lw=0.8)
+    axes[0].set_ylabel("power")
+    axes[0].set_yscale("log")
+    axes[1].plot(g_axis, norm_radial, lw=0.8, label="data (normalized)")
+    axes[1].plot(g_axis, model, lw=0.8, label="CTF$^2$ fit")
+    axes[1].set_xlabel("spatial frequency (1/Å)")
+    axes[1].legend(loc="upper right", fontsize=8)
+    axes[1].set_title(
+        f"df1={float(fit.df1):.0f} Å  df2={float(fit.df2):.0f} Å  "
+        f"ast={float(fit.angast):.1f}°  fit_res={float(fit.fit_res):.2f} Å",
+        fontsize=9,
+    )
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+
+
+def plot_drift(shifts, out_path):
+    plt = _pyplot()
+    shifts = np.asarray(shifts)
+    fig, ax = plt.subplots(figsize=(5, 5))
+    ax.plot(shifts[:, 1], shifts[:, 0], "o-", ms=3)
+    ax.plot(shifts[0, 1], shifts[0, 0], "rs", label="first frame")
+    ax.set_xlabel("x shift (px)")
+    ax.set_ylabel("y shift (px)")
+    ax.set_title("beam-induced motion")
+    ax.legend()
+    ax.set_aspect("equal")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
 
 
 def plot_fsc(freqs, curves, pixel_size, out_path, labels=None,

@@ -1,26 +1,36 @@
-"""Command-line entry point of the port: the `refine`, `postprocess`,
-`fsc` and `mask` modes on a CUDA device.
+"""Command-line entry point of the port: the `spr`, `extract`, `gain`,
+`refine`, `postprocess`, `fsc` and `mask` modes on a CUDA device.
 
+    python -m pyp_tpu_torch.cli spr -data_path 'movies/*.mrc' -scope_pixel 1.0 ...
+    python -m pyp_tpu_torch.cli extract -extract_box 128
+    python -m pyp_tpu_torch.cli gain -data_path 'movies/*.mrc'
     python -m pyp_tpu_torch.cli refine -refine_maxiter 4 -refine_goldstandard ...
     python -m pyp_tpu_torch.cli postprocess -sharpen_locres ...
     python -m pyp_tpu_torch.cli fsc half1.mrc half2.mrc [-fsc_mask mask.mrc]
     python -m pyp_tpu_torch.cli mask -mask_method auto|sphere|file ...
 
-Reads stack.mrc, stack.cistem and initial_model.mrc (or -model_path) from
-the project directory, like `pyp_tpu refine`, and runs the refinement loop
-with the engine the parameters name (`-refine_engine frm`, the default, or
+`spr` preprocesses every movie `-data_path` matches (frame alignment, CTF
+estimation, picking) into one `<name>.meta.npz` bundle each, resuming
+from the bundles it finds; `extract` windows the picked particles of all
+bundles into stack.mrc + stack.cistem; `gain` estimates a gain reference
+from raw movies. `refine` reads stack.mrc, stack.cistem and
+initial_model.mrc (or -model_path) from the project directory, like
+`pyp_tpu refine`, and runs the refinement loop with the engine the parameters name (`-refine_engine frm`, the default, or
 `gather`); parameters persist in the same project file
 (.pyp_tpu_config.toml, written and read by `config.params` in the same
 format as the JAX package's). `postprocess` sharpens the newest half maps
 under maps/ (mask-corrected FSC, Guinier B, optional local resolution);
 `fsc` writes <out>.txt (and <out>.png with matplotlib) for map pairs given
 as arguments; `mask` writes <dataset>_mask.mrc. Each writes the files the
-JAX package's mode writes. Every other mode, SLURM submission and ab
-initio are not ported yet and exit non-zero.
+JAX package's mode writes. Every other mode and ab initio are not ported
+yet and exit non-zero; SLURM submission, the learned picker
+(`-detect_method nn`), the micrograph denoiser (`-denoise_spr n2n`) and
+`-prism_enable` raise NotImplementedError by name.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import sys
@@ -34,8 +44,7 @@ from pyp_tpu_torch.utils import get_logger
 
 logger = get_logger("cli")
 
-# the JAX package's modes; `refine`, `postprocess`, `fsc` and `mask` are
-# ported
+# the JAX package's modes; PORTED below names the ones the port has
 MODES = ("spr", "tomo", "extract", "refine", "classify2d", "classify3d",
          "csp", "polish", "postprocess", "import_star", "export_star",
          "clean", "worker", "params", "gain", "stream", "kselection",
@@ -84,6 +93,117 @@ def slurm_requested(params: dict) -> bool:
         return False
     return bool(params.get("slurm_queue") or params.get("slurm_host")
                 or params.get("slurm_submit"))
+
+
+def _discover_items(params):
+    pattern = params.get("data_path") or ""
+    suffix = str(params.get("data_suffix") or "")
+    items = []
+    for path in sorted(glob.glob(pattern)):
+        if suffix and suffix not in Path(path).name:
+            continue
+        items.append({"name": Path(path).stem, "path": path})
+    # separate mdoc glob (reference data_path_mdoc): tomo datasets whose
+    # .mdoc files live apart from the frame movies
+    mdoc_glob = str(params.get("data_path_mdoc") or "")
+    if mdoc_glob:
+        have = {i["name"] for i in items}
+        for path in sorted(glob.glob(mdoc_glob)):
+            name = Path(path).stem.replace(".mrc", "")
+            if name not in have:
+                items.append({"name": name, "path": path})
+    # saved filter selection: keep only items the filter kept
+    sel = str(params.get("filter_sel") or "")
+    if sel:
+        from pyp_tpu_torch.analysis.filters import load_selection
+
+        keep = load_selection(sel, ".",
+                              str(params.get("data_set") or "dataset"))
+        items = [it for it in items if it["name"] in keep]
+    # dataset subsetting (large-project splits): process [first, last)
+    first = int(params.get("data_first_item") or 0)
+    last = int(params.get("data_last_item") or -1)
+    if first or last >= 0:
+        items = items[first:(None if last < 0 else last)]
+    return items
+
+
+def mode_spr(argv, device="cuda"):
+    """Per-micrograph preprocessing of every movie -data_path matches, as
+    a swarm of jobs on the local executor followed by the merge; prints
+    the merge summary."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.pipeline import spr
+    from pyp_tpu_torch.sched import JobGraph, LocalExecutor
+
+    items = _discover_items(params)
+    if not items:
+        logger.error("no input files match data_path=%r", params.get("data_path"))
+        return 1
+    # refusals come before any job runs: the executor would record an
+    # exception of a job as that job's failure
+    if slurm_requested(params):
+        raise NotImplementedError(
+            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
+            "spr is not ported; run it on the local executor")
+    if params.get("prism_enable"):
+        raise NotImplementedError(
+            "prism_enable (micrograph quality scoring) is not ported")
+    spr.check_ported(params)
+    dev = resolve_device(device)
+
+    graph = JobGraph("spr")
+    graph.swarm(
+        "sprswarm", items,
+        work_fn=lambda item: spr.process_micrograph(item, params, device=dev),
+        merge_fn=lambda results, missing: spr.spr_merge(results, missing),
+        max_retries=int(params.get("slurm_retries") or 2),
+        merge_retries=int(params.get("slurm_merge_retries") or 2),
+    )
+    # intra-node worker pool: with more than one task the micrographs run
+    # in threads on the one card
+    LocalExecutor(max_workers=int(params.get("slurm_local_tasks") or 0)
+                  or int(params.get("slurm_tasks") or 1)).run(graph)
+    merge = graph.jobs["sprswarm.merge"]
+    print(json.dumps(merge.result, indent=1, default=str))
+    return 0 if merge.status == "done" else 1
+
+
+def mode_extract(argv, device="cuda"):
+    params = _project_params(argv)
+    from pyp_tpu_torch.pipeline import spr
+
+    names = sorted(
+        p.name.replace(".meta.npz", "") for p in Path(".").glob("*.meta.npz")
+    )
+    stack, table = spr.extract_stack([{"name": n} for n in names], params,
+                                     device=device)
+    if stack is None:
+        logger.error("no picked particles found in project dir")
+        return 1
+    print(json.dumps({"particles": len(stack), "stack": "stack.mrc"}))
+    return 0
+
+
+def mode_gain(argv, device="cuda"):
+    """Estimate a gain reference from raw counting movies (the reference's
+    pypgain mode)."""
+    params = _project_params(argv)
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.pipeline.spr import estimate_gain
+
+    paths = sorted(glob.glob(params.get("data_path") or ""))
+    if not paths:
+        logger.error("no input files match data_path=%r", params.get("data_path"))
+        return 1
+    gain = estimate_gain(paths, max_movies=int(params.get("gain_movies") or 10),
+                         device=device)
+    out = params.get("gain_reference") or "gain.mrc"
+    mrc.write(gain, out)
+    print(json.dumps({"gain": out, "shape": list(gain.shape),
+                      "movies": min(len(paths), int(params.get("gain_movies") or 10))}))
+    return 0
 
 
 def mode_refine(argv, device="cuda"):
@@ -253,13 +373,15 @@ def mode_mask(argv, device="cuda"):
     return 0
 
 
-PORTED = {"refine": mode_refine, "postprocess": mode_postprocess,
+PORTED = {"spr": mode_spr, "extract": mode_extract, "gain": mode_gain,
+          "refine": mode_refine, "postprocess": mode_postprocess,
           "fsc": mode_fsc, "mask": mode_mask}
 
 
 def main(argv=None, device="cuda"):
     """Entry point: `main([mode, ...], device=...)` for the ported modes
-    (refine, postprocess, fsc, mask). Returns the exit code; other modes
+    (spr, extract, gain, refine, postprocess, fsc, mask). Returns the exit
+    code; other modes
     are not yet ported and return 2."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):

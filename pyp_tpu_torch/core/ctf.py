@@ -49,6 +49,14 @@ def chi(g, df, voltage_kv, cs_mm, phase_shift_rad=0.0):
             + phase_shift_rad)
 
 
+def ctf_1d(g, df, voltage_kv, cs_mm, w=0.07, phase_shift_rad=0.0,
+           bfactor=0.0):
+    """CTF along a radial profile g (1/Å, a tensor) at constant defocus."""
+    x = chi(g, df, voltage_kv, cs_mm, phase_shift_rad)
+    amp = math.atan2(w, math.sqrt(max(1.0 - w * w, 0.0)))
+    return -torch.sin(x + amp) * torch.exp(-0.25 * bfactor * g * g)
+
+
 def _fftfreq(n: int, pixel_size: float, rfft: bool, device):
     """np.fft.(r)fftfreq(n, d=pixel_size) in float32, computed as the JAX
     package computes it (integer wavenumbers divided by float32(n * d))."""

@@ -1,15 +1,57 @@
-"""Masks, the 3D lowpass and image normalization — the torch port of the
-parts of pyp_tpu/core/filters.py the refinement slice uses."""
+"""Fourier filters (bandpass, B-factor, motion envelope), masks, the 3D
+lowpass and image normalization — the torch port of
+pyp_tpu/core/filters.py."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from pyp_tpu_torch.core.fft import freq_grid_2d, radius_grid
+
 
 def _smoothstep(x):
     x = torch.clamp(x, 0.0, 1.0)
     return 0.5 - 0.5 * torch.cos(np.pi * x)
+
+
+def bandpass_filter(shape, low_cut, high_cut, low_width=0.02,
+                    high_width=0.02, rfft=True, device=None):
+    """Cosine-edged bandpass in cycles/pixel on an FFT-layout grid. Passes
+    |f| in [low_cut, high_cut]; each edge rolls off over *_width. low_cut
+    <= 0 disables the highpass edge; high_cut >= 0.5*sqrt(2) disables the
+    lowpass edge."""
+    ny, nx = shape
+    r = radius_grid(ny, nx, rfft, device)
+    f = torch.ones_like(r)
+    if low_cut > 0:
+        f = f * _smoothstep((r - (low_cut - low_width)) / max(low_width, 1e-6))
+    return f * (1.0 - _smoothstep((r - high_cut) / max(high_width, 1e-6)))
+
+
+def apply_bandpass(imgs, low_cut, high_cut, **kw):
+    ny, nx = imgs.shape[-2], imgs.shape[-1]
+    filt = bandpass_filter((ny, nx), low_cut, high_cut, device=imgs.device,
+                           **kw)
+    return torch.fft.irfft2(torch.fft.rfft2(imgs) * filt, s=(ny, nx))
+
+
+def bfactor_filter(shape, pixel_size, bfactor, rfft=True, device=None):
+    """exp(-B g² / 4) envelope (B in Å²; sharpening for B < 0)."""
+    ny, nx = shape
+    r = radius_grid(ny, nx, rfft, device) / pixel_size
+    return torch.exp(-0.25 * bfactor * r * r)
+
+
+def motion_envelope(shape, pixel_size, shift_per_frame, rfft=True):
+    """Per-frame motion-blur envelope: sinc attenuation from intra-frame
+    drift. shift_per_frame: (n_frames, 2) tensor, the drift during each
+    frame in pixels. Returns (n_frames, ny, nxf) envelopes."""
+    ny, nx = shape
+    fy, fx = freq_grid_2d(ny, nx, rfft, shift_per_frame.device)
+    dot = (fy[None] * shift_per_frame[:, 0, None, None]
+           + fx[None] * shift_per_frame[:, 1, None, None])
+    return torch.sinc(dot)
 
 
 def lowpass_filter_3d(vol, pixel_size, resolution, width=0.01):

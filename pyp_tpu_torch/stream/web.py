@@ -70,6 +70,9 @@ class Web:
             return None
 
     # reference web.py:257-342
+    def write_micrograph(self, name, summary: dict):
+        return self._request("write_micrograph", {"name": name, **summary})
+
     def write_reconstruction(self, dataset, iteration, resolution, fsc=None):
         return self._request("write_reconstruction", {
             "dataset": dataset, "iteration": iteration,

@@ -151,3 +151,77 @@ class TestFsc:
               jfsc.radial_shell_filter_3d((16, 16, 16), jnp.asarray(curve)))
         close(tfsc.apply_fsc_filter(torch.from_numpy(a), torch.from_numpy(np.clip(curve, 0, 1))),
               jfsc.apply_fsc_filter(jnp.asarray(a), jnp.asarray(np.clip(curve, 0, 1))))
+
+
+class TestFftAndFilterHelpers:
+    """The helpers the preprocessing slice added to core.fft and
+    core.filters."""
+
+    @pytest.mark.parametrize("shape,rfft", [((48, 64), True), ((33, 31), True),
+                                            ((16, 20), False)])
+    def test_frequency_grids(self, shape, rfft):
+        for out, ref in zip(tfft.freq_grid_2d(*shape, rfft),
+                            jfft.freq_grid_2d(*shape, rfft)):
+            close(out, ref, atol_rel=1e-6)
+        close(tfft.radius_grid(*shape, rfft), jfft.radius_grid(*shape, rfft),
+              atol_rel=1e-6)
+
+    @pytest.mark.parametrize("shape", [(5, 32, 48), (2, 3, 33, 31)])
+    def test_fourier_shift_and_shift_images(self, shape):
+        rng = np.random.RandomState(0)
+        imgs = rng.randn(*shape).astype(np.float32)
+        sh = rng.uniform(-6, 6, shape[:-2] + (2,)).astype(np.float32)
+        ny, nx = shape[-2:]
+        f = np.fft.rfft2(imgs).astype(np.complex64)
+        ref = jfft.fourier_shift(jnp.asarray(f), jnp.asarray(sh), ny, nx)
+        out = tfft.fourier_shift(torch.from_numpy(f), torch.from_numpy(sh),
+                                 ny, nx)
+        close(out.real, np.real(ref), atol_rel=1e-4)
+        close(out.imag, np.imag(ref), atol_rel=1e-4)
+        close(tfft.shift_images(torch.from_numpy(imgs), torch.from_numpy(sh)),
+              jfft.shift_images(jnp.asarray(imgs), jnp.asarray(sh)),
+              atol_rel=1e-4)
+
+    @pytest.mark.parametrize("binning", [2, 3])
+    def test_bin_images(self, binning):
+        imgs = np.random.RandomState(1).randn(3, 48, 60).astype(np.float32)
+        close(tfft.bin_images(torch.from_numpy(imgs), binning),
+              jfft.bin_images(jnp.asarray(imgs), binning), atol_rel=1e-4)
+
+    @pytest.mark.parametrize("shape,rfft", [((4, 32, 17), True),
+                                            ((24, 24), False)])
+    def test_radial_average(self, shape, rfft):
+        power = np.random.RandomState(2).rand(*shape).astype(np.float32)
+        ny = shape[-2]
+        nx = (shape[-1] - 1) * 2 if rfft else shape[-1]
+        prof, counts = tfft.radial_average(torch.from_numpy(power), 12, ny, nx,
+                                           rfft)
+        prof_ref, counts_ref = jfft.radial_average(jnp.asarray(power), 12, ny,
+                                                   nx, rfft)
+        close(prof, prof_ref)
+        close(counts, counts_ref, atol_rel=0)
+
+    @pytest.mark.parametrize("kw", [dict(low_cut=0.05, high_cut=0.3),
+                                    dict(low_cut=0.0, high_cut=0.25,
+                                         high_width=0.05),
+                                    dict(low_cut=0.1, high_cut=0.8,
+                                         low_width=0.04, rfft=False)])
+    def test_bandpass(self, kw):
+        close(tfilters.bandpass_filter((40, 48), **kw),
+              jfilters.bandpass_filter((40, 48), **kw), atol_rel=1e-5)
+        if kw.get("rfft", True):
+            imgs = np.random.RandomState(3).randn(2, 40, 48).astype(np.float32)
+            close(tfilters.apply_bandpass(torch.from_numpy(imgs), **kw),
+                  jfilters.apply_bandpass(jnp.asarray(imgs), **kw),
+                  atol_rel=1e-4)
+
+    def test_bfactor_filter_and_motion_envelope(self):
+        for rfft in (True, False):
+            close(tfilters.bfactor_filter((32, 40), 1.3, 80.0, rfft),
+                  jfilters.bfactor_filter((32, 40), 1.3, 80.0, rfft),
+                  atol_rel=1e-5)
+            sh = np.random.RandomState(4).uniform(-2, 2, (5, 2)).astype(np.float32)
+            close(tfilters.motion_envelope((32, 40), 1.3, torch.from_numpy(sh),
+                                           rfft),
+                  jfilters.motion_envelope((32, 40), 1.3, jnp.asarray(sh), rfft),
+                  atol_rel=1e-5)

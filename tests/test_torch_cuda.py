@@ -31,6 +31,14 @@ local resolution: resolution within 1e-3 Å, maps atol 1e-3 * max|map|;
 model_map_fit cc within 1e-4 and the same shift; the loop with every
 reconstruction option >= 90% of poses within 1°, map cc >= 0.99, the
 same files; the fsc and mask modes' files atol 1e-4 / 1e-5.
+
+The preprocessing slice (a 12 x 128² movie with a planted drift, a 512²
+micrograph): alignment shifts within 1e-2 px and averages atol 1e-4 *
+max|average| (small and camera-sized path); periodogram rtol 1e-4; fit_ctf
+defocus within 0.2 * dfstep, angle within 2°; medians exact; picks the
+same set of coordinates; extracted stacks atol 1e-4 * max; one
+process_micrograph + extract_stack: the same picks, drift within 1e-2 px,
+stacks atol 1e-3 * max.
 """
 
 import numpy as np
@@ -411,3 +419,160 @@ def test_fsc_and_mask_modes(halves, tmp_path, monkeypatch, shared_phases):
                                mrc.read(tmp_path / "cpu" / "d_mask.mrc"), atol=1e-5)
     np.testing.assert_allclose(np.loadtxt(tmp_path / "cuda" / "fsc.txt"),
                                np.loadtxt(tmp_path / "cpu" / "fsc.txt"), atol=1e-4)
+
+
+# ---- the preprocessing slice ------------------------------------------------
+def _movie(n_frames=12, n=128, drift=6.0, noise=0.5, seed=0):
+    rng = np.random.RandomState(seed)
+    fy = np.fft.fftfreq(n)[:, None]
+    fx = np.fft.rfftfreq(n)[None, :]
+    base = np.fft.irfft2(np.fft.rfft2(rng.randn(n, n))
+                         * (np.sqrt(fy ** 2 + fx ** 2) < 0.25), s=(n, n)) * 10
+    t = np.linspace(0, 1, n_frames)
+    traj = np.stack([drift * (1 - np.exp(-3 * t)), -0.6 * drift * t ** 2], 1)
+    traj -= traj.mean(axis=0, keepdims=True)
+    ramp = np.exp(-2j * np.pi * (fy[None] * traj[:, 0, None, None]
+                                 + fx[None] * traj[:, 1, None, None]))
+    frames = np.fft.irfft2(np.fft.rfft2(base)[None] * ramp, s=(n, n))
+    frames += noise * rng.randn(*frames.shape)
+    return frames.astype(np.float32), traj.astype(np.float32)
+
+
+def _blobs(n=512, n_particles=20, radius=16, seed=0):
+    rng = np.random.RandomState(seed)
+    img = rng.randn(n, n).astype(np.float32)
+    ax = np.arange(-2 * radius, 2 * radius + 1)
+    blob = np.exp(-(ax[:, None] ** 2 + ax[None, :] ** 2) / (radius * radius / 1.5))
+    coords = rng.randint(3 * radius, n - 3 * radius, (n_particles, 2))
+    for y, x in coords:
+        img[y - 2 * radius:y + 2 * radius + 1,
+            x - 2 * radius:x + 2 * radius + 1] -= 3.0 * blob
+    return img, coords
+
+
+def _near(cuda_t, cpu_t, atol_rel=1e-4, rtol=1e-4):
+    a, b = cuda_t.cpu().numpy(), cpu_t.numpy()
+    np.testing.assert_allclose(a, b, rtol=rtol,
+                               atol=atol_rel * float(np.abs(b).max()))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(ref="middle", phase_only=True),
+                                dict(tol=0.05, smooth_order=2)])
+def test_align_movie_cuda_matches_cpu(kw):
+    from pyp_tpu_torch.ops import motion
+
+    frames, traj = _movie()
+    kw = dict(bfactor=200.0, search_radius=20.0, **kw)
+    c = motion.align_movie(frames, device="cpu", **kw)
+    g = motion.align_movie(frames, device="cuda", **kw)
+    assert g.shifts.is_cuda and g.average.is_cuda
+    np.testing.assert_allclose(g.shifts.cpu().numpy(), c.shifts.numpy(), atol=1e-2)
+    _near(g.average, c.average)
+    assert np.abs(g.shifts.cpu().numpy() + traj).max() < 0.35
+
+
+@pytest.mark.parametrize("binning,dose_weighted", [(1, True), (2, True),
+                                                   (2, False)])
+def test_align_movie_large_cuda_matches_cpu(binning, dose_weighted):
+    from pyp_tpu_torch.ops import motion
+
+    frames, _ = _movie()
+    kw = dict(binning=binning, dose_weighted=dose_weighted, bfactor=200.0)
+    c = motion.align_movie_large(frames, device="cpu", **kw)
+    g = motion.align_movie_large(frames, device="cuda", **kw)
+    np.testing.assert_allclose(g.shifts.cpu().numpy(), c.shifts.numpy(), atol=1e-2)
+    _near(g.average, c.average)
+
+
+def test_periodogram_and_fit_ctf_cuda_match_cpu():
+    from pyp_tpu_torch.core.ctf import ctf_2d
+    from pyp_tpu_torch.ops import ctf_fit
+
+    rng = np.random.RandomState(1)
+    c = ctf_2d((512, 512), 1.0, torch.tensor(19000.0), torch.tensor(17500.0),
+               torch.tensor(40.0), 300.0, 2.7, 0.07).numpy()
+    mic = np.fft.irfft2(np.fft.rfft2(rng.randn(512, 512)) * c, s=(512, 512))
+    mic = (mic + 0.5 * rng.randn(512, 512)).astype(np.float32)
+    pc = ctf_fit.periodogram(torch.from_numpy(mic), 256)
+    pg = ctf_fit.periodogram(torch.from_numpy(mic).cuda(), 256)
+    _near(pg, pc)
+    kw = dict(dfmin=5000.0, dfmax=40000.0, dfstep=250.0, min_res=25.0,
+              max_res=3.5)
+    fc = ctf_fit.fit_ctf(pc, 1.0, device="cpu", **kw)
+    fg = ctf_fit.fit_ctf(pc, 1.0, device="cuda", **kw)
+    assert all(x.is_cuda for x in fg)
+    fc, fg = [float(x) for x in fc], [float(x) for x in fg]
+    assert abs(fg[0] - fc[0]) <= 50.0 and abs(fg[1] - fc[1]) <= 50.0, (fg, fc)
+    assert abs((fg[2] - fc[2] + 90) % 180 - 90) <= 2.0
+    assert abs(fg[4] - fc[4]) <= 1e-3 * abs(fc[4]) and abs(fg[5] - fc[5]) <= 1e-3 * fc[5]
+    assert abs((fg[0] + fg[1]) / 2 - 18250.0) < 300.0
+
+
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) + 1])
+def test_median_cuda_matches_numpy(n):
+    from pyp_tpu_torch.ops import pick
+
+    x = np.random.RandomState(n % 7).randn(3, n).astype(np.float32)
+    np.testing.assert_array_equal(
+        pick.median(torch.from_numpy(x).cuda()).cpu().numpy(),
+        np.median(x, axis=-1))
+
+
+def test_pick_and_hot_pixels_cuda_match_cpu():
+    from pyp_tpu_torch.ops import pick
+
+    img, coords = _blobs()
+    kw = dict(particle_radius_px=16, max_picks=64, threshold_sigma=2.0,
+              edge_px=16)
+    c = pick.pick_particles(img, device="cpu", **kw)
+    g = pick.pick_particles(img, device="cuda", **kw)
+
+    def as_set(r):
+        return {tuple(v) for v in r.coords.cpu().numpy()[r.valid.cpu().numpy()]}
+
+    assert as_set(g) == as_set(c) and len(as_set(g)) >= 16
+    n = int(c.valid.sum())
+    np.testing.assert_allclose(g.scores.cpu().numpy()[:n], c.scores.numpy()[:n],
+                               atol=1e-3)
+    frames = np.random.RandomState(2).poisson(3.0, (3, 64, 80)).astype(np.float32)
+    frames[1, 10, 10] += 400.0
+    t = torch.from_numpy(frames)
+    _near(pick.remove_hot_pixels(t.cuda()), pick.remove_hot_pixels(t), 1e-6, 1e-6)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(subpixel=True, downsample_to=48)])
+def test_extract_particles_cuda_matches_cpu(kw):
+    from pyp_tpu_torch.ops import extract
+
+    img, coords = _blobs()
+    pos = coords + np.random.RandomState(3).uniform(-0.5, 0.5, coords.shape)
+    c = extract.extract_particles(img, pos.astype(np.float32), 64, device="cpu", **kw)
+    g = extract.extract_particles(img, pos.astype(np.float32), 64, device="cuda", **kw)
+    assert g.is_cuda
+    _near(g, c)
+
+
+def test_process_micrograph_and_extract_stack_cuda_match_cpu(tmp_path):
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.pipeline import spr
+
+    frames, _ = _movie(n=256)
+    params = schema.defaults()
+    params.update(scope_pixel=1.0, detect_rad=16.0, extract_box=32,
+                  ctf_tile=128, plot_per_item=False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        work = tmp_path / dev
+        s = spr.process_micrograph({"name": "m", "frames": frames}, params,
+                                   work, device=dev)
+        assert s["frame_uploads"] == 1
+        stack, table = spr.extract_stack(["m"], params, work, device=dev)
+        out[dev] = (s, ItemMetadata("m", work).load(), stack, table)
+    (sc, mc, stc, tc), (sg, mg, stg, tg) = out["cpu"], out["cuda"]
+    assert sg["particles"] == sc["particles"] > 0
+    np.testing.assert_allclose(mg["drift"], mc["drift"], atol=1e-2)
+    assert {(y, x) for y, x, _ in mg["box"]} == {(y, x) for y, x, _ in mc["box"]}
+    assert abs(mg["ctf"][0] - mc["ctf"][0]) <= 50.0
+    np.testing.assert_allclose(stg, stc, atol=1e-3 * np.abs(stc).max())
+    np.testing.assert_array_equal(tg["original_x_position"],
+                                  tc["original_x_position"])

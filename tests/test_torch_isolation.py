@@ -5,7 +5,10 @@ package's do: the same schema defaults and parsed flags, project files
 and MRC / .cistem / PDB files each package reads back from the other,
 byte for byte where both write, and STAR tables (the port keeps only the
 reader) read the same. Also: the port's entry points default to the card,
-so they raise on a machine without one."""
+so they raise on a machine without one. The preprocessing slice's copies
+(io.metadata, io.tiff, io.eer, io.dm, sched.graph, LocalExecutor,
+load_selection, Web.write_micrograph) are held to the JAX package's the
+same way, and the options that slice refuses raise by name."""
 
 import ast
 from pathlib import Path
@@ -95,7 +98,12 @@ def test_slurm_and_modes_agree(monkeypatch):
     assert not bridge.slurm_requested(params)
 
 
-def test_web_request_is_the_same(monkeypatch):
+@pytest.mark.parametrize("method,args", [
+    ("write_reconstruction", ("ds", 3, np.float32(4.5), [1.0, 0.5, 0.1])),
+    ("write_micrograph", ("mic_01", {"particles": 12, "df1": np.float32(2e4),
+                                     "ctf_fit_res": 4.5, "mag": 1e4})),
+])
+def test_web_request_is_the_same(monkeypatch, method, args):
     from pyp_tpu.stream import web as jweb
     from pyp_tpu_torch.stream import web as tweb
 
@@ -116,11 +124,10 @@ def test_web_request_is_the_same(monkeypatch):
         return _Reply()
 
     monkeypatch.setattr("urllib.request.urlopen", urlopen)
-    args = ("ds", 3, np.float32(4.5), [1.0, 0.5, 0.1])
     for web in (jweb.Web("http://localhost:1", "t"),
                 tweb.Web("http://localhost:1", "t")):
         assert web.exists
-        assert web.write_reconstruction(*args) == {"result": None}
+        assert getattr(web, method)(*args) == {"result": None}
     assert len(sent) == 2 and sent[0] == sent[1]
     assert not tweb.Web("", "").exists
 
@@ -193,10 +200,185 @@ def test_star_tables_read_the_same(tmp_path):
             np.testing.assert_array_equal(a[name]["loop"][col], b[name]["loop"][col])
 
 
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_metadata_bundles_cross_read(writer, tmp_path):
+    from pyp_tpu.io import metadata as jmeta
+    from pyp_tpu_torch.io import metadata as tmeta
+
+    assert tmeta.SCHEMA_SPR == jmeta.SCHEMA_SPR
+    assert tmeta.SCHEMA_TOMO == jmeta.SCHEMA_TOMO
+    rng = np.random.RandomState(2)
+    arrays = {"drift": rng.randn(12, 2).astype(np.float32),
+              "average": rng.randn(32, 48).astype(np.float32),
+              "ctf": rng.randn(6), "box": rng.randn(5, 3)}
+    W, R = (jmeta, tmeta) if writer == "jax" else (tmeta, jmeta)
+    m = W.ItemMetadata("mic", tmp_path)
+    for k, v in arrays.items():
+        m[k] = v
+    m.scalars.update(pixel=1.25, voltage=300.0)
+    m.save()
+    back = R.ItemMetadata("mic", tmp_path).load()
+    assert back.exists() and back.scalars == m.scalars
+    for k, v in arrays.items():
+        assert back.is_done(k) and k in back
+        np.testing.assert_array_equal(back[k], v)
+        assert back[k].dtype == v.dtype
+    assert not back.is_done("ctf_diag")
+    assert sorted(back.refresh({"ctf_force": True, "movie_force": True})) == [
+        "average", "ctf", "drift"]
+    assert not back.is_done("drift") and back.is_done("box")
+    back.save()                      # what was not dropped survives a save
+    again = W.ItemMetadata("mic", tmp_path).load()
+    np.testing.assert_array_equal(again["box"], arrays["box"])
+    assert not again.is_done("ctf")
+    # the scalar sidecars are the same bytes
+    other = tmp_path / "other"
+    m2 = R.ItemMetadata("mic", other)
+    m2.scalars.update(m.scalars)
+    m2["box"] = arrays["box"]
+    m2.save()
+    m.directory = tmp_path / "mine"
+    m.save()
+    assert m2.json_path.read_bytes() == m.json_path.read_bytes()
+
+
+def test_port_metadata_reads_entries_on_demand(tmp_path):
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    m = ItemMetadata("mic", tmp_path)
+    m["drift"], m["average"] = np.ones((3, 2)), np.zeros((8, 8))
+    m.save()
+    back = ItemMetadata("mic", tmp_path).load()
+    assert back.arrays == {} and back.entries() == {"drift", "average"}
+    assert back["drift"].shape == (3, 2) and set(back.arrays) == {"drift"}
+    back["box"] = np.zeros((1, 3))
+    back.save()
+    assert ItemMetadata("mic", tmp_path).load().entries() == {
+        "drift", "average", "box"}
+
+
+@pytest.mark.parametrize("fmt", ["tiff8", "tiff16", "tiff_lzw", "eer", "dm4"])
+def test_camera_formats_write_the_same_bytes_and_cross_read(fmt, tmp_path):
+    from pyp_tpu.io import dm as jdm
+    from pyp_tpu.io import eer as jeer
+    from pyp_tpu.io import tiff as jtiff
+    from pyp_tpu_torch.io import dm as tdm
+    from pyp_tpu_torch.io import eer as teer
+    from pyp_tpu_torch.io import tiff as ttiff
+
+    rng = np.random.RandomState(3)
+    a, b = tmp_path / "jax.bin", tmp_path / "port.bin"
+    if fmt.startswith("tiff"):
+        data = rng.poisson(3.0, (3, 20, 28)).astype(
+            np.uint16 if fmt == "tiff16" else np.uint8)
+        jtiff.write(data, a), ttiff.write(data, b)
+        readers = (jtiff.read, ttiff.read)
+        if fmt == "tiff_lzw":
+            # an LZW-compressed page, hand-packed: 9-bit codes, clear first
+            import struct
+
+            raw = bytes(rng.randint(0, 200, 16, dtype=np.uint8))
+            codes = [256] + list(raw) + [257]
+            bits = "".join(f"{c:09b}" for c in codes)
+            bits += "0" * (-len(bits) % 8)
+            lzw = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+            tags = [(256, 3, 4), (257, 3, 4), (258, 3, 8), (259, 3, 5),
+                    (273, 4, 8 + 2 + 12 * 7 + 4), (278, 3, 4),
+                    (279, 4, len(lzw))]
+            ifd = struct.pack("<H", len(tags)) + b"".join(
+                struct.pack("<HHII", t, typ, 1, v) for t, typ, v in tags
+            ) + struct.pack("<I", 0)
+            a.write_bytes(b"II" + struct.pack("<HI", 42, 8) + ifd + lzw)
+            b.write_bytes(a.read_bytes())
+            data = np.frombuffer(raw, np.uint8).reshape(1, 4, 4)
+    elif fmt == "eer":
+        data = (rng.rand(4, 64, 64) < 0.02).astype(np.uint16)
+        jeer.write(a, data), teer.write(b, data)
+        readers = (lambda p: jeer.read(p, frame_groups=2),
+                   lambda p: teer.read(p, frame_groups=2))
+        data = data.reshape(2, 2, 64, 64).sum(1)
+    else:
+        data = rng.randn(3, 8, 12).astype(np.float32)
+        jdm.write_dm4(data, a), tdm.write_dm4(data, b)
+        readers = (jdm.read, tdm.read)
+    assert a.read_bytes() == b.read_bytes()
+    for read in readers:
+        np.testing.assert_array_equal(np.asarray(read(a)), data)
+
+
+@pytest.mark.parametrize("workers,fault_rate", [(1, 0.0), (3, 0.0), (1, 0.6)])
+def test_job_graph_and_local_executor_behave_the_same(workers, fault_rate):
+    from pyp_tpu import sched as jsched
+    from pyp_tpu_torch import sched as tsched
+
+    def run(mod):
+        calls = []
+
+        def work(item):
+            calls.append(item)
+            if item == "bad":
+                raise ValueError("boom")
+            return {"name": item, "n": len(item)}
+
+        graph = mod.JobGraph("spr")
+        graph.swarm("swarm", ["a", "bb", "bad", "cccc"], work_fn=work,
+                    merge_fn=lambda results, missing: {
+                        "done": sorted(results), "missing": sorted(missing)},
+                    max_retries=2, merge_retries=1)
+        mod.LocalExecutor(max_workers=workers, fault_rate=fault_rate,
+                          fault_seed=4).run(graph)
+        return ({n: (j.status, j.result, j.retries, sorted(j.deps))
+                 for n, j in graph.jobs.items()}, sorted(calls),
+                graph.is_complete())
+
+    assert run(tsched) == run(jsched)
+    jobs, calls, _ = run(tsched)
+    assert jobs["swarm.merge"][0] == "done"
+    assert jobs["swarm.merge"][1]["missing"] == [
+        n for n, j in jobs.items() if j[0] == "failed"]
+    if not fault_rate:
+        assert calls.count("bad") == 3      # tried, then retried twice
+
+
+def test_load_selection_is_the_same(tmp_path):
+    import json
+
+    from pyp_tpu.analysis.filters import load_selection as jload
+    from pyp_tpu_torch.analysis.filters import load_selection as tload
+
+    (tmp_path / "ds_good.filter.json").write_text(
+        json.dumps({"keep": ["a", "c"], "rules": []}))
+    for arg in ("good", str(tmp_path / "ds_good.filter.json")):
+        assert tload(arg, tmp_path, "ds") == jload(arg, tmp_path, "ds") == {"a", "c"}
+    with pytest.raises(FileNotFoundError):
+        tload("absent", tmp_path, "ds")
+
+
+@pytest.mark.parametrize("flags,word", [
+    (["-detect_method", "nn"], "detect_method"),
+    (["-denoise_spr", "n2n"], "denoise_spr"),
+    (["-prism_enable"], "prism_enable"),
+    (["-slurm_queue", "gpu"], "SLURM"),
+    (["-slurm_submit"], "SLURM"),
+])
+def test_refused_preprocessing_options_raise_by_name(flags, word, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    tmrc.write(np.zeros((2, 8, 8), np.float32), "m.mrc")
+    with pytest.raises(NotImplementedError, match=word):
+        tcli.main(["spr", "-data_path", "m.mrc"] + flags, device="cpu")
+    assert not list(tmp_path.glob("*.meta.npz"))
+
+
 ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "refine_batch", "FrmConfig", "postprocess_latest",
                 "cli_postprocess", "cli_fsc", "cli_mask", "local_resolution",
-                "model_map_fit"]
+                "model_map_fit", "process_micrograph", "extract_stack",
+                "estimate_gain", "align_movie", "align_movie_large",
+                "align_movie_patches", "fit_ctf", "fit_ctf_micrograph",
+                "fit_ctf_local", "pick_particles", "detect_gold_beads",
+                "extract_particles", "extract_from_frames", "cli_spr",
+                "cli_extract", "cli_gain"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -204,8 +386,11 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """Every entry point of the port defaults to "cuda" and raises through
     resolve_device where there is no card: none carries on on the CPU."""
     from pyp_tpu_torch.analysis import modelfit
-    from pyp_tpu_torch.ops import frm, reconstruct, refine3d
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.ops import (ctf_fit, extract, frm, motion, pick,
+                                   reconstruct, refine3d)
     from pyp_tpu_torch.pipeline import refine as tref
+    from pyp_tpu_torch.pipeline import spr as tspr
     from pyp_tpu_torch.postprocess import core as post
     from pyp_tpu_torch.postprocess import locres
 
@@ -218,7 +403,29 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     vol = np.zeros((16, 16, 16), np.float32)
     table = tcistem.Table.zeros(2)
     poses, cp = np.zeros((2, 5), np.float32), np.zeros((2, 4), np.float32)
+    tmrc.write(stack, "m.mrc")
+    done = ItemMetadata("done", tmp_path)
+    done["average"], done["box"] = stack[0], np.zeros((1, 3))
+    done.save()
+    coords = np.array([[8, 8]])
     calls = {
+        "process_micrograph": lambda: tspr.process_micrograph(
+            {"name": "m", "frames": stack}, params),
+        "extract_stack": lambda: tspr.extract_stack(["done"], params),
+        "estimate_gain": lambda: tspr.estimate_gain(["m.mrc"]),
+        "align_movie": lambda: motion.align_movie(stack),
+        "align_movie_large": lambda: motion.align_movie_large(stack),
+        "align_movie_patches": lambda: motion.align_movie_patches(stack, (2, 2)),
+        "fit_ctf": lambda: ctf_fit.fit_ctf(stack[0, :, :9], 2.0),
+        "fit_ctf_micrograph": lambda: ctf_fit.fit_ctf_micrograph(stack[0], 2.0),
+        "fit_ctf_local": lambda: ctf_fit.fit_ctf_local(stack[0], 2.0),
+        "pick_particles": lambda: pick.pick_particles(stack[0]),
+        "detect_gold_beads": lambda: pick.detect_gold_beads(stack[0]),
+        "extract_particles": lambda: extract.extract_particles(stack[0], coords, 8),
+        "extract_from_frames": lambda: extract.extract_from_frames(stack, coords, 8),
+        "cli_spr": lambda: tcli.main(["spr", "-data_path", "m.mrc"]),
+        "cli_extract": lambda: tcli.main(["extract"]),
+        "cli_gain": lambda: tcli.main(["gain", "-data_path", "m.mrc"]),
         "refine_loop": lambda: tref.refine_loop(stack, table, vol, params,
                                                 work_dir="unused"),
         "refinement_iteration": lambda: tref.refinement_iteration(

@@ -211,7 +211,10 @@ def test_cli_refine_and_unported(problem, tmp_path, monkeypatch):
 
     stack, table, start, _ = problem
     monkeypatch.chdir(tmp_path)
-    assert cli.main(["spr"], device="cpu") == 2
+    # a mode the port does not have exits 2; spr is ported since the
+    # preprocessing slice and, with no movie to read, exits 1
+    assert cli.main(["tomo"], device="cpu") == 2
+    assert cli.main(["spr"], device="cpu") == 1
     for engine in ("frm", "gather"):
         # one project directory per engine: a refine run resumes after
         # the iterations it finds in maps/
@@ -245,6 +248,11 @@ def test_cli_imports_no_jax():
             "import pyp_tpu_torch.postprocess.locres, pyp_tpu_torch.analysis.scores; "
             "import pyp_tpu_torch.analysis.modelfit, pyp_tpu_torch.analysis.plots; "
             "import pyp_tpu_torch.io.pdb, pyp_tpu_torch.io.star; "
+            "import pyp_tpu_torch.pipeline.spr, pyp_tpu_torch.ops.motion; "
+            "import pyp_tpu_torch.ops.ctf_fit, pyp_tpu_torch.ops.pick; "
+            "import pyp_tpu_torch.ops.extract, pyp_tpu_torch.sched; "
+            "import pyp_tpu_torch.io.metadata, pyp_tpu_torch.io.eer; "
+            "import pyp_tpu_torch.io.dm, pyp_tpu_torch.tools.e2e_spr; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pyp_tpu.')) or m == 'pyp_tpu'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

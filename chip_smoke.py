@@ -1,6 +1,6 @@
 """Smoke run of pyp_tpu_torch on one CUDA card: builds the port's kernels
 from the sources in this checkout, checks each against its plain PyTorch
-version at the shapes the main path gives it, then drives the SPA
+version at the shapes the main paths give it, then drives the SPA
 refinement loop through `pyp_tpu_torch.cli.main` on a synthetic
 4,096-particle, box-128 dataset, once per engine, and the preprocessing
 path (movies to a particle stack) on three synthetic 40 x 4096² movies,
@@ -34,7 +34,24 @@ and checks each result against the ground truth:
   extract    the `extract` mode: as many normalized particles as picks,
              the table's defocus equal to the fits, both files read back;
   spr_refine  the extracted stack through the FRM protocol (reported, no
-             bar): movies to a map.
+             bar): movies to a map;
+
+and, between postprocess and the preprocessing phases, ab initio and
+classification (`tools/e2e_class`, on e2e_spa's truth):
+
+  abinit     `refine -refine_abinit` without an initial model (ab initio on
+             the FRM engine at the schema's defaults, then FRM_ARGS) on
+             4,096 particles with +-1 px shifts: the ab initio map, aligned
+             to the truth over rotation and hand, masked 10 Å cc >= 0.8;
+             the final map FSC(0.143) <= 4.86 Å, aligned cc >= 0.94;
+  abinit_classic  the classic engine (6 rounds; its global search runs
+             shift_scored_match): particles score higher against its map
+             than against a sphere;
+  classify2d  `classify2d` on 4,096 particles of 8 views, polar, gather
+             (the kernel) and staged: purity >= 0.8 (staged 0.75);
+  classify3d  `classify3d` on two states of 2,048 particles at consensus
+             poses, FRM, focused and gather: purity >= 0.8, class maps
+             closer to their own state; then `kselection` and `clean`.
 
     python3 chip_smoke.py
 
@@ -69,7 +86,16 @@ KERNEL_CASES = [
     ("shift_chunks", 300, 64, 40, 49, 4),   # S > 32: two chunks of 25
     ("ragged", 1000, 37, 13, 7, 5),         # G % 4 != 0, D % 8 != 0
     ("slice", 256 * 72, 168, 732, 29, 3),
+    # classic ab initio's last round: 2,048 particles x 24 psi, the
+    # 300-12 Å band, the 15° lattice, +-6.4 px at 2 px
+    ("abinit_classic", 2048 * 24, 178, 184, 31, 6),
+    # the 2D gather E-step: 4,096 particles x 24 psi, the 100-10 Å band,
+    # 8 classes, +-5 px at 2 px
+    ("classify2d_gather", 4096 * 24, 252, 8, 16, 7),
 ]
+# the main paths' shapes, timed beside the plain version, the library
+# call and the bounds; the kernels line reports the gather slice's
+TIMED_CASES = ("slice", "abinit_classic", "classify2d_gather")
 RTOL, ATOL_REL, MAX_IDX_DISAGREE = 2e-5, 2e-4, 0.01
 # the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): dense TF32
 # on the tensor cores, FP32 on the CUDA cores, HBM3 bandwidth
@@ -185,7 +211,7 @@ def phase_kernel():
                "S": S, "max_abs_err": err, "max_abs_score": scale,
                "idx_disagree": disagree,
                "ok": ok and disagree < MAX_IDX_DISAGREE}
-        if name == "slice":
+        if name in TIMED_CASES:
             tf32x3, fp32, mem = bounds_ms(A, G, D, S)
             operands = kernels.kernel_operands(*args[:3])
             lib_score, _ = library_call(*args)
@@ -205,7 +231,8 @@ def phase_kernel():
                        share_of_bound=tf32x3 / row["ms"],
                        kernel_share_of_bound=tf32x3 / row["kernel_ms"],
                        share_of_fp32_bound=fp32 / row["ms"])
-            slice_row = row
+            if name == "slice":
+                slice_row = row
             del operands
         emit(row)
         if not row["ok"]:
@@ -604,6 +631,266 @@ def phase_postprocess(final_halves):
         raise RuntimeError(f"missing outputs {missing}")
 
 
+# ---- ab initio and classification ----------------------------------------
+# the JAX package's bars: aligned masked cc of an ab initio map >= 0.8
+# (tests/test_ab_initio.py:43); 2D purity >= 0.8, staged >= 0.75
+# (tests/test_refine2d.py:71,126); 3D purity >= 0.8 and each class map
+# closer to its own state (tests/test_classify3d.py:58-71)
+ABINIT_CC_BAR, PURITY_BAR, STAGED_PURITY_BAR = 0.8, 0.8, 0.75
+ABINIT_DATA = dict(n_particles=4096, box=128, noise_x=3.0, shift_max=1.0,
+                   seed=0)
+CLASSIC_ROUNDS, CLASSIC_STEP = 6, 15.0
+CLASS2D_ARGS = ["classify2d", "-class_num", "8", "-class_rhcls", "10",
+                "-scope_pixel", "1.0", "-no_plot_per_item"]
+CLASS3D_ARGS = ["classify3d", "-class_num", "2", "-class3d_iters", "3",
+                "-class_rhcls", "8", "-scope_pixel", "1.0",
+                "-no_plot_per_item"]
+
+
+def _timed_rows(stages, word):
+    """(name, seconds) of the Timer lines whose name holds `word`."""
+    return [[name, sec] for name, sec in stages.rows if word in name]
+
+
+def phase_abinit(data):
+    """`refine` with -refine_abinit and no initial_model.mrc through
+    cli.main: ab initio at the schema's abinit_* defaults (the FRM engine),
+    then the reference FRM protocol (e2e_spa.FRM_ARGS) from its map. Bars:
+    initial_model.mrc aligned to the truth (rotation and hand) reaches a
+    masked 10 Å cc >= 0.8; the final map FSC(0.143) <= 4.86 Å and aligned
+    cc >= 0.94."""
+    import torch
+
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.tools import e2e_class, e2e_spa, profile_refine
+    from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS
+
+    box = ABINIT_DATA["box"]
+    cwd = os.getcwd()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as work:
+        e2e_spa.write_project(work, data, np.zeros((box,) * 3, np.float32))
+        os.remove(os.path.join(work, "initial_model.mrc"))
+        os.chdir(work)
+        try:
+            with _StageTimes() as stages:
+                iters, wall = _sync_s(lambda: profile_refine.drive(
+                    FRM_ARGS + ["-refine_abinit"], "cuda"))
+            initial = mrc.read("initial_model.mrc")
+            final = mrc.read(os.path.join("maps",
+                                          f"dataset_r01_{max(iters):02d}.mrc"))
+        finally:
+            os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rounds = _timed_rows(stages, "ab-initio")
+    (cc_init, _, ang_init, flip_init), init_align_s = _sync_s(
+        lambda: e2e_class.aligned_cc(initial, data["volume"], device="cuda"))
+    cc_final, _, _, flip_final = e2e_class.aligned_cc(final, data["volume"],
+                                                      device="cuda")
+    for it, row in iters.items():
+        emit({"phase": "iteration", "argv": "abinit", "iteration": it, **row})
+    row = {"phase": "abinit", "seconds": wall,
+           "abinit_s": sum(sec for _, sec in rounds), "rounds": rounds,
+           "refine_s": sum(r["wall_s"] for r in iters.values()),
+           "cc_initial_aligned_10A": cc_init, "initial_angles": ang_init,
+           "initial_flipped": flip_init, "align_volumes_s": init_align_s,
+           "cc_final_aligned_10A": cc_final, "final_flipped": flip_final,
+           "final_fsc143_A": iters[max(iters)]["fsc143_A"],
+           "max_memory_allocated_GiB": peak}
+    emit(row)
+    if not (initial.shape == (box,) * 3 and np.isfinite(initial).all()):
+        raise RuntimeError(f"initial_model.mrc has shape {initial.shape} or "
+                           "non-finite values")
+    if not cc_init >= ABINIT_CC_BAR:
+        raise RuntimeError(f"ab initio map aligned cc {cc_init:.4f} is not "
+                           f">= {ABINIT_CC_BAR}")
+    if not row["final_fsc143_A"] <= FRM_FSC_BAR_A:
+        raise RuntimeError(f"final FSC(0.143) {row['final_fsc143_A']:.2f} Å "
+                           f"is not <= {FRM_FSC_BAR_A} Å")
+    if not cc_final >= FRM_CC_BAR:
+        raise RuntimeError(f"final map aligned cc {cc_final:.4f} is not >= "
+                           f"{FRM_CC_BAR}")
+
+
+def phase_abinit_classic(data):
+    """ops.ab_initio.ab_initio (the classic subset engine, whose global
+    search runs the shift_scored_match kernel) called directly for 6
+    rounds at the CLI's 15° lattice. Bar (tests/test_ab_initio.py:78):
+    the particles score higher against its map at its poses than against
+    a featureless sphere. Reported: the aligned cc. Returns the kernel's
+    launches in the run."""
+    import torch
+
+    from pyp_tpu_torch.core.filters import soft_spherical_mask
+    from pyp_tpu_torch.ops import ab_initio, kernels
+    from pyp_tpu_torch.tools import e2e_class
+
+    box = ABINIT_DATA["box"]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.shift_scored_match.launches = 0
+    with _StageTimes() as stages:
+        (vol, poses), wall = _sync_s(lambda: ab_initio.ab_initio(
+            data["stack"], data["ctf_params"], 1.0, n_rounds=CLASSIC_ROUNDS,
+            angular_step=CLASSIC_STEP, device="cuda"))
+    launches = kernels.shift_scored_match.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sphere = soft_spherical_mask(box, box * 0.3, 4.0).numpy()
+    scores = {name: ab_initio.mean_particle_score(
+        data["stack"], data["ctf_params"], poses, ref, 1.0, 12.0,
+        device="cuda") for name, ref in (("model", vol), ("sphere", sphere))}
+    cc_aligned, _, _, flipped = e2e_class.aligned_cc(vol, data["volume"],
+                                                     device="cuda")
+    row = {"phase": "abinit_classic", "seconds": wall,
+           "rounds": _timed_rows(stages, "ab-initio"),
+           "shift_scored_match_launches": launches,
+           "score_model": scores["model"], "score_sphere": scores["sphere"],
+           "cc_aligned_10A": cc_aligned, "flipped": flipped,
+           "max_memory_allocated_GiB": peak}
+    emit(row)
+    if not np.isfinite(vol).all():
+        raise RuntimeError("classic ab initio map has non-finite values")
+    if launches < CLASSIC_ROUNDS:
+        raise RuntimeError(f"classic ab initio launched shift_scored_match "
+                           f"{launches} times in {CLASSIC_ROUNDS} rounds")
+    if not scores["model"] > scores["sphere"]:
+        raise RuntimeError(f"particles score {scores['model']:.4f} against "
+                           f"the ab initio map, not above "
+                           f"{scores['sphere']:.4f} against a sphere")
+    return launches
+
+
+def phase_classify2d():
+    """`classify2d` through cli.main on 4,096 particles of 8 views (box
+    128): the polar engine, the gather engine (the path of the
+    shift_scored_match kernel) and the staged protocol. Bars: purity >=
+    0.8 per engine, >= 0.75 staged; classes_2d.mrc of (8, 128, 128);
+    best_2d_class written. Returns the gather run's kernel launches."""
+    import torch
+
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.tools import e2e_class, e2e_spa
+
+    data, synth_s = _sync_s(lambda: e2e_class.views_dataset(device="cuda"))
+    box = data["stack"].shape[-1]
+    runs = {"polar": [], "gather": ["-class_engine", "gather"],
+            "staged": ["-class2d_staged", "-class2d_max_ab_initio", "1024"]}
+    launches, failures = None, []
+    for name, extra in runs.items():
+        with tempfile.TemporaryDirectory() as work:
+            e2e_spa.write_project(work, data, np.zeros((4,) * 3, np.float32))
+            torch.cuda.reset_peak_memory_stats()
+            kernels.shift_scored_match.launches = 0
+            out, wall = _cli_json(CLASS2D_ARGS + extra, work)
+            n_launch = kernels.shift_scored_match.launches
+            avgs = mrc.read(os.path.join(work, "classes_2d.mrc"))
+            table = cistem.read_parameters(os.path.join(work, "stack.cistem"))
+        assign = np.asarray(table["best_2d_class"]) - 1 \
+            if "best_2d_class" in table else np.zeros(len(data["labels"]))
+        pur = e2e_class.purity(assign, data["labels"])
+        emit({"phase": "classify2d", "run": name, "seconds": wall,
+              "particles_per_s_iteration": len(assign) * 10 / wall,
+              "purity": pur, "occupancy": out["occupancy"],
+              "shift_scored_match_launches": n_launch,
+              "classes_shape": list(avgs.shape), "synthesize_s": synth_s,
+              "max_memory_allocated_GiB":
+                  torch.cuda.max_memory_allocated() / 2**30})
+        bar = STAGED_PURITY_BAR if name == "staged" else PURITY_BAR
+        if not pur >= bar:
+            failures.append(f"{name}: purity {pur:.3f} < {bar}")
+        if avgs.shape != (8, box, box) or "best_2d_class" not in table:
+            failures.append(f"{name}: classes_2d.mrc {avgs.shape} or no "
+                            "best_2d_class")
+        if name == "gather":
+            launches = n_launch
+            if n_launch < 1:
+                failures.append("the gather engine never launched "
+                                "shift_scored_match")
+    if failures:
+        raise RuntimeError("classify2d bars failed: " + "; ".join(failures))
+    return launches
+
+
+def phase_classify3d():
+    """`classify3d` through cli.main on two states of 2,048 particles each
+    at consensus poses (the truth, and the truth plus a 10 px blob at
+    (20, 0, 0) px), from 0.5 (A + B): the FRM engine, the focused path
+    (class_focusmask on the blob) and the gather engine (reported). Bars:
+    purity >= 0.8 (FRM, focused); each class map closer to its own state;
+    the maps and classes table written. Then `kselection` keeps B's class
+    and `clean -clean_particles -clean_mode percentile
+    -clean_check_reconstruction` writes a finite maps/clean_check.mrc."""
+    import torch
+
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.tools import e2e_class
+
+    data, synth_s = _sync_s(lambda: e2e_class.two_state_dataset(
+        device="cuda"))
+    vol_a, vol_b = data["volumes"]
+    start = 0.5 * (vol_a + vol_b)
+    runs = {"frm": [], "focused": ["-class_focusmask", "20,0,0,14"],
+            "gather": ["-refine_engine", "gather"]}
+    failures = []
+    for name, extra in runs.items():
+        with tempfile.TemporaryDirectory() as work:
+            e2e_class.write_posed_project(work, data, start)
+            torch.cuda.reset_peak_memory_stats()
+            with _StageTimes() as stages:
+                out, wall = _cli_json(CLASS3D_ARGS + extra, work)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            maps = os.path.join(work, "maps")
+            last = out["iterations"][-1]["iteration"]
+            refs = [mrc.read(os.path.join(maps, f"dataset_r0{k}_{last:02d}.mrc"))
+                    for k in (1, 2)]
+            table = cistem.read_parameters(os.path.join(work, "stack.cistem"))
+            written = os.path.exists(os.path.join(
+                maps, f"dataset_classes_{last:02d}.cistem"))
+            assign = np.asarray(table["best_2d_class"]) - 1
+            ccs = np.array([[e2e_class.cc(r, v) for v in (vol_a, vol_b)]
+                            for r in refs])
+            # the class most of state A's particles went to is A's class
+            k_a = int(np.bincount(assign[data["labels"] == 0],
+                                  minlength=2).argmax())
+            b_class = 2 - k_a                      # 1-based, the other one
+            row = {"phase": "classify3d", "run": name, "seconds": wall,
+                   "iterations": _timed_rows(stages, "classification"),
+                   "purity": e2e_class.purity(assign, data["labels"]),
+                   "class_vs_state_cc": ccs.tolist(),
+                   "occupancy": out["iterations"][-1]["occupancy"],
+                   "max_memory_allocated_GiB": peak, "synthesize_s": synth_s}
+            if name == "frm":
+                ks, row["kselection_s"] = _cli_json(
+                    ["kselection", "-keep_classes", str(b_class)], work)
+                row["kselection_kept"] = ks["kept"]
+                cl, row["clean_s"] = _cli_json(
+                    ["clean", "-clean_particles", "-clean_mode", "percentile",
+                     "-clean_check_reconstruction"], work)
+                row["clean_kept"] = cl["kept"]
+                check = mrc.read(os.path.join(maps, "clean_check.mrc"))
+                row["clean_check_finite"] = bool(np.isfinite(check).all())
+                if ks["kept"] != int((assign == b_class - 1).sum()):
+                    failures.append(f"kselection kept {ks['kept']}, not the "
+                                    f"class's {(assign == b_class - 1).sum()}")
+                if not row["clean_check_finite"]:
+                    failures.append("maps/clean_check.mrc is not finite")
+        emit(row)
+        matched = ccs[k_a, 0] + ccs[1 - k_a, 1]
+        crossed = ccs[k_a, 1] + ccs[1 - k_a, 0]
+        if name != "gather":
+            if not row["purity"] >= PURITY_BAR:
+                failures.append(f"{name}: purity {row['purity']:.3f} < "
+                                f"{PURITY_BAR}")
+            if not matched > crossed:
+                failures.append(f"{name}: class maps no closer to their own "
+                                f"state: {ccs.tolist()}")
+            if not written:
+                failures.append(f"{name}: no maps/dataset_classes_{last:02d}"
+                                ".cistem")
+    if failures:
+        raise RuntimeError("classify3d bars failed: " + "; ".join(failures))
+
+
 # ---- preprocessing: movies to a particle stack -----------------------------
 DRIFT_RMS_BAR_PX, DEFOCUS_BAR_REL, ANGAST_BAR_DEG = 0.5, 0.01, 10.0
 PICK_RECALL_BAR, PICK_PRECISION_BAR, RESUME_BAR = 0.8, 0.8, 0.1
@@ -939,13 +1226,23 @@ def main():
     phase_postprocess(final_halves)
     volume = data["volume"]
     del data, init, final_halves
+    from pyp_tpu_torch.tools import e2e_spa
+
+    abinit_data = e2e_spa.make_dataset(device="cuda", **ABINIT_DATA)
+    phase_abinit(abinit_data)
+    classic = phase_abinit_classic(abinit_data)
+    del abinit_data
+    gather2d = phase_classify2d()
+    phase_classify3d()
     phase_preprocess(volume)
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "shift_scored_match", "route": "cuda",
         "source": "pyp_tpu_torch/csrc/shift_scored_match.cu",
         "replaces": "pyp_tpu/ops/pallas_kernels.py:80",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": {"slice": launches, "abinit_classic": classic,
+                     "classify2d_gather": gather2d},
+        "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "operations", "library_ms": k["library_ms"],
         "bound_fp32_ms": k["bound_fp32_ms"], "tflops": k["tflops"]}]})

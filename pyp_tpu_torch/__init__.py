@@ -81,3 +81,15 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False")
     return dev
+
+
+def rows_per_call(device, total: int, bytes_per_row: int) -> int:
+    """Rows of a per-row computation to run at once on `device`: all of
+    them on the CPU, else as many as fit a quarter of the card's free
+    memory at `bytes_per_row`. Where each row's result depends only on
+    that row, the split changes no result."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return max(1, total)
+    free, _ = torch.cuda.mem_get_info(dev)
+    return int(max(1, min(total, (free // 4) // max(1, bytes_per_row))))

@@ -1,5 +1,6 @@
 """Diagnostic plots of the SPA path — the port of `plot_ctf_fit`,
-`plot_drift`, `plot_fsc`, `plot_guinier` and `plot_iteration_changes` of
+`plot_drift`, `plot_fsc`, `plot_guinier`, `plot_iteration_changes`,
+`plot_occupancy_history` and `histogram_particle_scores` of
 pyp_tpu/analysis/plots.py.
 matplotlib is optional: each function imports it when called and raises
 ImportError where it is missing, which callers turn into a warning and a
@@ -111,3 +112,43 @@ def plot_iteration_changes(d_angles, d_shifts, scores, out_path, iteration):
     fig.savefig(out_path, dpi=110)
     plt.close(fig)
 
+
+
+def plot_occupancy_history(history, out_path):
+    """Class occupancy vs iteration. history: list of dicts with
+    'iteration' and 'occupancies' (or 'occupancy'), the per-class mean
+    occupancy in %."""
+    rows = [(h["iteration"], h.get("occupancies", h.get("occupancy")))
+            for h in history
+            if h.get("occupancies", h.get("occupancy")) is not None]
+    if not rows:
+        return
+    plt = _pyplot()
+    its = [r[0] for r in rows]
+    occ = np.asarray([r[1] for r in rows])  # (n_iter, K)
+    fig, ax = plt.subplots(figsize=(5.5, 3.2))
+    for k in range(occ.shape[1]):
+        ax.plot(its, occ[:, k], "o-", ms=3, label=f"class {k + 1}")
+    ax.set_xlabel("iteration")
+    ax.set_ylabel("mean occupancy (%)")
+    ax.legend(fontsize=7)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=110)
+    plt.close(fig)
+
+
+def histogram_particle_scores(scores, threshold, out_path, title=""):
+    """Score histogram with the cleaning threshold marked."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(5, 3.2))
+    ax.hist(np.asarray(scores), bins=50)
+    ax.axvline(float(threshold), color="r", ls="--",
+               label=f"threshold {float(threshold):.3g}")
+    ax.set_xlabel("score")
+    ax.set_ylabel("particles")
+    if title:
+        ax.set_title(title, fontsize=9)
+    ax.legend(fontsize=8)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=110)
+    plt.close(fig)

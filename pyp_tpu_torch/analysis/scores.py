@@ -1,10 +1,12 @@
-"""Score shaping of particle tables between refinement iterations — the
-torch port of the reconstruction-time shaping path of
-pyp_tpu/analysis/scores.py: per-(angular, defocus)-group score cutoffs
-with adaptive window growth and NaN-aware smoothing, defocus / azimuth /
-tilt / frame windows, score reversal and the between-iteration
-consistency test, folded into a keep mask. Table logic runs in numpy, as
-in the JAX package; the one rotation goes through torch."""
+"""Score shaping and particle cleaning of particle tables — the torch
+port of pyp_tpu/analysis/scores.py but `per_frame_weights`: the
+reconstruction-time shaping path (per-(angular, defocus)-group score
+cutoffs with adaptive window growth and NaN-aware smoothing, defocus /
+azimuth / tilt / frame windows, score reversal and the between-iteration
+consistency test, folded into a keep mask) and what the `clean` and
+`kselection` modes call (`particle_cleaning`, `remove_duplicates`,
+`generate_cluster_stacks`, `select_classes`, `expand_symmetry`). Table
+logic runs in numpy, as in the JAX package; rotations go through torch."""
 
 from __future__ import annotations
 
@@ -405,3 +407,125 @@ def shaping_mask_from_params(table, params, tilt_angles=None, previous=None):
         consistency=shapr == "consistency" and previous is not None,
     )
     return keep
+
+
+def particle_cleaning(table, score_cut=None, min_occ: float = 0.0,
+                      mode: str = "otsu"):
+    """Deactivate particles below the score threshold or the occupancy
+    floor. Returns (table, kept mask); rows stay in the table (FREALIGN
+    semantics: OCC 0 and image_is_active 0 instead of deletion)."""
+    scores = np.asarray(table["score"], dtype=np.float64)
+    if score_cut is None:
+        score_cut = score_threshold(scores, mode)
+    keep = scores >= score_cut
+    if "occupancy" in table:
+        keep &= np.asarray(table["occupancy"]) >= min_occ
+    if "image_is_active" in table:
+        table["image_is_active"] = keep.astype(np.int64)
+    if "occupancy" in table:
+        occ = np.asarray(table["occupancy"]).copy()
+        occ[~keep] = 0.0
+        table["occupancy"] = occ
+    logger.info("particle cleaning: %d/%d kept (cutoff %.2f)",
+                int(keep.sum()), len(keep), score_cut)
+    return table, keep
+
+
+def remove_duplicates(positions, scores, min_distance: float):
+    """Greedy NMS on (N, 2 or 3) positions: keep the best-scoring particle
+    within each min_distance neighbourhood. Returns a boolean keep mask."""
+    positions = np.asarray(positions, dtype=np.float64)
+    order = np.argsort(np.asarray(scores))[::-1]
+    keep = np.zeros(len(positions), dtype=bool)
+    kept_pos = []
+    for i in order:
+        p = positions[i]
+        if all(np.linalg.norm(p - q) >= min_distance for q in kept_pos):
+            keep[i] = True
+            kept_pos.append(p)
+    return keep
+
+
+def select_classes(table, keep_classes):
+    """Keep only particles assigned (best_2d_class) to the given classes:
+    deactivates everything else. Returns (table, keep mask)."""
+    assign = np.asarray(table["best_2d_class"]).astype(int)
+    keep = np.isin(assign, np.asarray(list(keep_classes), dtype=int))
+    if "image_is_active" in table:
+        table["image_is_active"] = keep.astype(np.int64)
+    if "occupancy" in table:
+        occ = np.asarray(table["occupancy"]).copy()
+        occ[~keep] = 0.0
+        table["occupancy"] = occ
+    logger.info("class selection: %d/%d particles kept (classes %s)",
+                int(keep.sum()), len(keep), sorted(keep_classes))
+    return table, keep
+
+
+def generate_cluster_stacks(stack, table, n_angles: int = 25,
+                            n_defocuses: int = 25, out_dir=".",
+                            base: str = "cluster"):
+    """Per-(angular, defocus)-group particle stacks for visual inspection:
+    each populated group's particles, sorted by score, written as
+    <base>_<g>_<f>_stack.mrc; the group means go into one stack
+    <base>_means.mrc. Returns the list of written stack paths."""
+    from pathlib import Path
+
+    from pyp_tpu_torch.io import mrc
+
+    stack = np.asarray(stack)
+    ang_g, def_g = assign_angular_defocus_groups(table, n_angles, n_defocuses)
+    scores = (np.asarray(table["score"], dtype=np.float64)
+              if "score" in table else np.zeros(len(ang_g)))
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    written, means = [], []
+    for g in range(n_angles):
+        for f in range(n_defocuses):
+            idx = np.nonzero((ang_g == g) & (def_g == f))[0]
+            if idx.size == 0:
+                continue
+            idx = idx[np.argsort(scores[idx])]
+            path = out_dir / f"{base}_{g}_{f}_stack.mrc"
+            mrc.write(stack[idx].astype(np.float32), path)
+            written.append(str(path))
+            means.append(stack[idx].mean(axis=0))
+    if means:
+        mrc.write(np.stack(means).astype(np.float32),
+                  out_dir / f"{base}_means.mrc")
+    logger.info("cluster stacks: %d populated groups written to %s",
+                len(written), out_dir)
+    return written
+
+
+def expand_symmetry(table, symmetry: str):
+    """Symmetry-expand a particle table: every particle is replicated once
+    per point-group rotation S_k with orientation R @ S_k (Euler angles by
+    matrix_to_euler), mates grouped by rotation; the other columns copy
+    through and the occupancy is divided by the group order."""
+    from pyp_tpu_torch.core.geometry import (apply_symmetry_matrices,
+                                             matrix_to_euler)
+    from pyp_tpu_torch.io import cistem
+
+    mats = apply_symmetry_matrices(symmetry)
+    K = len(mats)
+    n = table.n_rows
+    R = euler_to_matrix(
+        *(torch.as_tensor(np.asarray(table[k], np.float32))
+          for k in ("phi", "theta", "psi"))).numpy()          # (n, 3, 3)
+    out = cistem.Table.zeros(n * K)
+    for name in table.data:
+        out[name] = np.tile(np.asarray(table[name]), K)
+    phis, thetas, psis = [], [], []
+    for S in mats:
+        Rk = np.einsum("nij,jk->nik", R, S)
+        ph, th, ps = matrix_to_euler(torch.as_tensor(Rk, dtype=torch.float32))
+        phis.append(ph.numpy())
+        thetas.append(th.numpy())
+        psis.append(ps.numpy())
+    out["phi"] = np.concatenate(phis)
+    out["theta"] = np.concatenate(thetas)
+    out["psi"] = np.concatenate(psis)
+    if "occupancy" in table:
+        out["occupancy"] = np.tile(np.asarray(table["occupancy"]) / K, K)
+    return out

@@ -1,10 +1,16 @@
 """Command-line entry point of the port: the `spr`, `extract`, `gain`,
-`refine`, `postprocess`, `fsc` and `mask` modes on a CUDA device.
+`refine`, `classify2d`, `classify3d`, `clean`, `kselection`,
+`postprocess`, `fsc` and `mask` modes on a CUDA device.
 
     python -m pyp_tpu_torch.cli spr -data_path 'movies/*.mrc' -scope_pixel 1.0 ...
     python -m pyp_tpu_torch.cli extract -extract_box 128
     python -m pyp_tpu_torch.cli gain -data_path 'movies/*.mrc'
     python -m pyp_tpu_torch.cli refine -refine_maxiter 4 -refine_goldstandard ...
+    python -m pyp_tpu_torch.cli refine -refine_abinit [-abinit_engine classic] ...
+    python -m pyp_tpu_torch.cli classify2d -class_num 8 [-class_engine gather]
+    python -m pyp_tpu_torch.cli classify3d -class_num 2 -class3d_iters 3 ...
+    python -m pyp_tpu_torch.cli clean -clean_particles -clean_mode percentile
+    python -m pyp_tpu_torch.cli kselection -keep_classes 1,3
     python -m pyp_tpu_torch.cli postprocess -sharpen_locres ...
     python -m pyp_tpu_torch.cli fsc half1.mrc half2.mrc [-fsc_mask mask.mrc]
     python -m pyp_tpu_torch.cli mask -mask_method auto|sphere|file ...
@@ -15,17 +21,25 @@ from the bundles it finds; `extract` windows the picked particles of all
 bundles into stack.mrc + stack.cistem; `gain` estimates a gain reference
 from raw movies. `refine` reads stack.mrc, stack.cistem and
 initial_model.mrc (or -model_path) from the project directory, like
-`pyp_tpu refine`, and runs the refinement loop with the engine the parameters name (`-refine_engine frm`, the default, or
-`gather`); parameters persist in the same project file
-(.pyp_tpu_config.toml, written and read by `config.params` in the same
-format as the JAX package's). `postprocess` sharpens the newest half maps
-under maps/ (mask-corrected FSC, Guinier B, optional local resolution);
-`fsc` writes <out>.txt (and <out>.png with matplotlib) for map pairs given
-as arguments; `mask` writes <dataset>_mask.mrc. Each writes the files the
-JAX package's mode writes. Every other mode and ab initio are not ported
-yet and exit non-zero; SLURM submission, the learned picker
-(`-detect_method nn`), the micrograph denoiser (`-denoise_spr n2n`) and
-`-prism_enable` raise NotImplementedError by name.
+`pyp_tpu refine`, and runs the refinement loop with the engine the
+parameters name (`-refine_engine frm`, the default, or `gather`); without
+an initial model, `-refine_abinit` first builds one by ab initio
+(`-abinit_engine frm`, the default, or `classic`) and writes it to
+initial_model.mrc. `classify2d` writes classes_2d.mrc and the
+best_2d_class column; `classify3d` writes per-class maps under maps/;
+`clean -clean_particles` deactivates particles by score, position, class
+or tilt (without -clean_particles it removes intermediates);
+`kselection` keeps the listed classes or symmetry-expands the table.
+Parameters persist in the same project file (.pyp_tpu_config.toml,
+written and read by `config.params` in the same format as the JAX
+package's). `postprocess` sharpens the newest half maps under maps/
+(mask-corrected FSC, Guinier B, optional local resolution); `fsc` writes
+<out>.txt (and <out>.png with matplotlib) for map pairs given as
+arguments; `mask` writes <dataset>_mask.mrc. Each writes the files the
+JAX package's mode writes. Every other mode is not ported yet and exits
+non-zero; SLURM submission, the learned picker (`-detect_method nn`), the
+micrograph denoiser (`-denoise_spr n2n`) and `-prism_enable` raise
+NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -222,9 +236,9 @@ def mode_refine(argv, device="cuda"):
     if init_path.exists():
         initial = mrc.read(init_path).astype(np.float32)
     elif params.get("refine_abinit") and not params.get("abinit_skip"):
-        logger.error("ab initio (refine_abinit) is not yet ported; supply "
-                     "initial_model.mrc")
-        return 2
+        initial = _ab_initio_model(stack, table, params, device)
+        mrc.write(initial, "initial_model.mrc",
+                  pixel_size=float(params["scope_pixel"]))
     else:
         # featureless sphere initial model (the reference's fallback)
         from pyp_tpu_torch.core.filters import soft_spherical_mask
@@ -234,6 +248,324 @@ def mode_refine(argv, device="cuda"):
     table, final, history = ref_pipe.refine_loop(
         stack, table, initial, params, dataset=dataset, device=device)
     print(json.dumps({"iterations": history}, default=str))
+    return 0
+
+
+def _ab_initio_model(stack, table, params, device):
+    """The initial model from scratch (`-refine_abinit` without an
+    initial_model.mrc): `ops.ab_initio.ab_initio_frm` (abinit_engine frm,
+    the default) or the classic subset engine `ab_initio`."""
+    from pyp_tpu_torch.ops import ab_initio as abi
+    from pyp_tpu_torch.pipeline.refine import table_to_ctf_params
+
+    logger.info("no initial_model.mrc: running marginalized ab initio")
+    common = dict(
+        symmetry=str(params["particle_sym"]),
+        n_rounds=int(params.get("abinit_rounds") or 10),
+        start_res=float(params.get("abinit_start_res") or 40.0),
+        end_res=float(params.get("abinit_end_res") or 12.0),
+        angular_step=float(params.get("abinit_angular_step") or 15.0),
+        seed=int(params.get("abinit_seed") or 0),
+        voltage_kv=float(params["scope_voltage"]),
+        cs_mm=float(params["scope_cs"]),
+        amplitude_contrast=float(params["scope_wgh"]),
+        device=device)
+    ctf = table_to_ctf_params(table)
+    pixel = float(params["scope_pixel"])
+    if str(params.get("abinit_engine") or "frm") == "classic":
+        initial, _poses = abi.ab_initio(
+            stack, ctf, pixel,
+            subset_frac=float(params.get("abinit_subset_frac") or 0.5),
+            anneal=float(params.get("abinit_anneal") or 0.0), **common)
+    else:
+        initial, _poses = abi.ab_initio_frm(
+            stack, ctf, pixel,
+            top_t=int(params.get("abinit_top_t") or 8),
+            beta0=float(params.get("abinit_beta0") or 20.0),
+            beta_growth=float(params.get("abinit_beta_growth") or 1.4),
+            hard_rounds=int(params.get("abinit_hard_rounds") or 3),
+            polish_rounds=int(params.get("abinit_polish_rounds") or 2),
+            soft_shifts=str(params.get("abinit_soft_shifts") or "zero"),
+            seed_particles=int(params.get("abinit_random_particles") or 8),
+            random_skip_ratio=float(
+                params.get("abinit_random_skip_ratio") or 0.0),
+            **common)
+    return initial
+
+
+def mode_classify2d(argv, device="cuda"):
+    """2D classification of stack.mrc (`classify2d`, or the staged
+    protocol with -class2d_staged): writes classes_2d.mrc and the
+    best_2d_class column of stack.cistem."""
+    params = _project_params(argv)
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.ops import refine2d
+    from pyp_tpu_torch.pipeline.refine import _np, table_to_ctf_params
+
+    stack = mrc.read("stack.mrc").astype(np.float32)
+    table = cistem.read_parameters("stack.cistem")
+    scope = dict(voltage_kv=float(params["scope_voltage"]),
+                 cs_mm=float(params["scope_cs"]),
+                 amplitude_contrast=float(params["scope_wgh"]),
+                 device=device)
+    if params.get("class2d_staged"):
+        res = refine2d.classify2d_staged(
+            stack, table_to_ctf_params(table), params,
+            float(params["scope_pixel"]), **scope)
+    else:
+        res = refine2d.classify2d(
+            stack, table_to_ctf_params(table),
+            int(params.get("class_num") or 10),
+            float(params["scope_pixel"]),
+            iters=int(params.get("class_2d_iters") or 10),
+            high_res=float(params.get("class_rhcls") or 10.0),
+            low_res=float(params.get("class_rlcls") or 100.0),
+            shift_extent=float(params.get("class_shift") or 5.0),
+            shift_step=float(params.get("class_shift_step") or 2.0),
+            psi_step=float(params.get("class_psi_step") or 15.0),
+            seed=int(params.get("class_seed") or 0),
+            engine=str(params.get("class_engine") or "polar"),
+            wiener=float(params.get("class_wiener") or 10.0), **scope)
+    mrc.write(_np(res.class_avgs), "classes_2d.mrc",
+              pixel_size=float(params["scope_pixel"]))
+    table["best_2d_class"] = _np(res.assignments) + 1
+    cistem.write_parameters(table, "stack.cistem")
+    print(json.dumps({
+        "classes": int(res.class_avgs.shape[0]),
+        "occupancy": _np(res.occupancy).tolist(),
+    }))
+    return 0
+
+
+def mode_classify3d(argv, device="cuda"):
+    """K-class 3D classification of stack.mrc from initial_model.mrc (or
+    a featureless sphere) and the table's poses; writes the per-class
+    maps under maps/ and the classes into stack.cistem."""
+    params = _project_params(argv)
+    from pyp_tpu_torch.core.filters import soft_spherical_mask
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.pipeline import classify3d as c3d
+
+    stack = mrc.read("stack.mrc").astype(np.float32)
+    table = cistem.read_parameters("stack.cistem")
+    init_path = Path("initial_model.mrc")
+    if init_path.exists():
+        initial = mrc.read(init_path).astype(np.float32)
+    else:
+        n = stack.shape[-1]
+        initial = soft_spherical_mask(n, n * 0.3, 5.0).numpy()
+    dataset = params.get("data_set") or "dataset"
+    table, refs, occ, history = c3d.classify3d_loop(
+        stack, table, initial, params, dataset=dataset, device=device)
+    cistem.write_parameters(table, "stack.cistem")
+    print(json.dumps({"iterations": history}, default=str))
+    return 0
+
+
+def _clean_particles(params, device):
+    """The particle-cleaning branch of `clean` (-clean_particles):
+    deactivate particles by score rule (otsu, fixed, percentile, shape),
+    position duplicates, class selection, tilt window and projection
+    count; optionally drop them, export their coordinates, write cluster
+    stacks and a check reconstruction."""
+    from pyp_tpu_torch.analysis import scores as sc
+    from pyp_tpu_torch.io import cistem, mrc
+
+    table = cistem.read_parameters("stack.cistem")
+    mode_rule = str(params.get("clean_mode") or "otsu")
+    if params.get("clean_spr_auto"):
+        # automatic bimodal threshold wins over any fixed/percentile rule
+        mode_rule = "otsu"
+    if mode_rule == "shape":
+        # group-local score shaping: percentile cutoffs inside each
+        # (view, defocus) group
+        table, keep = sc.shape_scores(
+            table,
+            n_angles=int(params.get("clean_shape_angles") or 25),
+            n_defocuses=int(params.get("clean_shape_defocuses") or 25),
+            threshold=1.0 - float(
+                params.get("clean_percentile") or 20.0) / 100.0)
+    else:
+        cut = None
+        if mode_rule == "fixed":
+            cut = float(params.get("clean_min_score") or 0.0)
+        elif mode_rule == "percentile":
+            cut = float(np.percentile(
+                np.asarray(table["score"]),
+                float(params.get("clean_percentile") or 20.0)))
+        if cut is None:
+            cut = float(sc.score_threshold(
+                np.asarray(table["score"], dtype=np.float64), "otsu"))
+        table, keep = sc.particle_cleaning(
+            table, score_cut=cut,
+            min_occ=float(params.get("clean_min_occ") or 0.0))
+    if params.get("plot_per_item", True) and "score" in table:
+        try:
+            from pyp_tpu_torch.analysis.plots import histogram_particle_scores
+
+            histogram_particle_scores(
+                np.asarray(table["score"]),
+                cut if mode_rule != "shape" else float(np.min(
+                    np.asarray(table["score"])[keep])) if keep.any()
+                else 0.0,
+                "clean_scores.png", title=f"clean ({mode_rule})")
+        except (ImportError, OSError, ValueError) as e:
+            logger.warning("clean score plot skipped: %s", e)
+    dist = float(params.get("clean_dist") or 0.0)
+    if dist > 0 and "original_x_position" in table:
+        pos = np.stack([np.asarray(table["original_y_position"]),
+                        np.asarray(table["original_x_position"])], 1)
+        keep_d = sc.remove_duplicates(pos, np.asarray(table["score"]), dist)
+        act = np.asarray(table["image_is_active"]).astype(bool) & keep_d
+        table["image_is_active"] = act.astype(np.int64)
+        keep = keep & keep_d
+    # class selection: keep only particles of the listed 3D classes. As
+    # in the JAX package it reads the reference_3d column, which
+    # classify3d does not write (it writes best_2d_class)
+    cls_sel = str(params.get("clean_class_selection") or "").strip()
+    if cls_sel and "reference_3d" in table:
+        wanted = {int(c) for c in cls_sel.replace(":", ",").split(",")
+                  if c != ""}
+        keep &= np.isin(np.asarray(table["reference_3d"]).astype(int),
+                        sorted(wanted))
+        if not params.get("clean_class_merge_alignment", True):
+            logger.warning(
+                "clean_class_merge_alignment=False requested: per-class "
+                "alignments are already per-particle here; selection keeps "
+                "each particle's own parameters either way")
+    # tilt-angle window: projections outside it deactivate
+    min_tilt = float(params.get("clean_mintilt") if params.get(
+        "clean_mintilt") not in (None, "") else -90.0)
+    max_tilt = float(params.get("clean_maxtilt") if params.get(
+        "clean_maxtilt") not in (None, "") else 90.0)
+    if (min_tilt > -90.0 or max_tilt < 90.0) and "tilt_angle" in table:
+        ta = np.asarray(table["tilt_angle"], dtype=np.float64)
+        keep &= (ta >= min_tilt) & (ta <= max_tilt)
+    # particles left with too few active projections drop entirely
+    min_proj = int(params.get("clean_min_num_projections") or 1)
+    if min_proj > 1 and "particle_index" in table:
+        keep &= sc.min_projections_keep(table["particle_index"], keep,
+                                        min_proj)
+    if "image_is_active" in table:
+        table["image_is_active"] = keep.astype(np.int64)
+    if "occupancy" in table:
+        occ = np.asarray(table["occupancy"]).copy()
+        occ[~keep] = 0.0
+        table["occupancy"] = occ
+    if params.get("clean_discard"):
+        # permanent removal; the default keeps rows at occupancy 0
+        table = table.select(keep)
+    cistem.write_parameters(table, "stack.cistem")
+    if params.get("clean_export_clean") and "original_x_position" in table:
+        # cleaned coordinates for re-extraction
+        sel_dir = Path("frealign/selected_particles")
+        sel_dir.mkdir(parents=True, exist_ok=True)
+        act = (np.asarray(table["image_is_active"]).astype(bool)
+               if "image_is_active" in table
+               else np.ones(table.n_rows, dtype=bool))
+        cols = [np.asarray(table["original_x_position"])[act],
+                np.asarray(table["original_y_position"])[act]]
+        if "original_z_position" in table:
+            cols.append(np.asarray(table["original_z_position"])[act])
+        np.savetxt(sel_dir / "clean.spk", np.stack(cols, axis=1), fmt="%.2f")
+    if params.get("clean_cluster_stacks") and Path("stack.mrc").exists():
+        # per-(view, defocus) group stacks for visual inspection
+        imgs_c = mrc.read("stack.mrc")
+        if imgs_c.shape[0] != table.n_rows and imgs_c.shape[0] == len(keep):
+            imgs_c = imgs_c[keep]    # clean_discard dropped rows
+        sc.generate_cluster_stacks(
+            imgs_c, table,
+            n_angles=int(params.get("clean_shape_angles") or 25),
+            n_defocuses=int(params.get("clean_shape_defocuses") or 25),
+            out_dir="clusters", base="stack")
+    if params.get("clean_check_reconstruction") and Path("stack.mrc").exists():
+        # sanity reconstruction from the cleaned table
+        from pyp_tpu_torch.ops import reconstruct as rec
+        from pyp_tpu_torch.pipeline.refine import (_np, table_to_ctf_params,
+                                                   table_to_poses)
+
+        imgs = mrc.read("stack.mrc")
+        if params.get("clean_discard"):
+            imgs = imgs[keep]    # table rows were dropped
+        pixel = (float(table["pixel_size"][0]) if "pixel_size" in table
+                 else float(params.get("scope_pixel") or 1.0))
+        wts = (np.asarray(table["occupancy"], np.float32) / 100.0
+               if "occupancy" in table else keep.astype(np.float32))
+        out = rec.reconstruct(
+            np.asarray(imgs, np.float32), table_to_poses(table, pixel),
+            table_to_ctf_params(table), pixel,
+            subset=(np.arange(table.n_rows) % 2).astype(np.int32),
+            weights=wts, symmetry=str(params.get("particle_sym") or "C1"),
+            voltage_kv=float(params.get("scope_voltage") or 300.0),
+            cs_mm=float(params.get("scope_cs") or 2.7),
+            amplitude_contrast=float(params.get("scope_wgh") or 0.07),
+            device=device)
+        Path("maps").mkdir(exist_ok=True)
+        mrc.write(_np(out.volume).astype(np.float32), "maps/clean_check.mrc",
+                  pixel_size=pixel)
+    print(json.dumps({"kept": int(keep.sum()), "total": int(len(keep))}))
+    return 0
+
+
+def mode_clean(argv, device="cuda"):
+    """With -clean_particles, particle cleaning (`_clean_particles`);
+    otherwise removal of regenerable intermediates: swarm scripts, stream
+    stacks, and with -clean_all also metadata bundles and maps/."""
+    import shutil
+
+    params = _project_params(argv, persist=False)
+    if params.get("clean_particles"):
+        return _clean_particles(params, device)
+    deep = "-clean_all" in argv
+    removed = []
+    for pattern in ["swarm", "stream_stack.mrc", "stream_classes.png"]:
+        p = Path(pattern)
+        if p.is_dir():
+            shutil.rmtree(p)
+            removed.append(str(p) + "/")
+        elif p.exists():
+            p.unlink()
+            removed.append(str(p))
+    if deep:
+        for p in (list(Path(".").glob("*.meta.npz"))
+                  + list(Path(".").glob("*.meta.json"))):
+            p.unlink()
+            removed.append(str(p))
+        if Path("maps").is_dir():
+            shutil.rmtree("maps")
+            removed.append("maps/")
+    usage = shutil.disk_usage(".")
+    print(json.dumps({"removed": removed, "deep": deep,
+                      "free_gb": round(usage.free / 2**30, 1)}))
+    return 0
+
+
+def mode_kselection(argv, device="cuda"):
+    """Keep only particles of the given classes (-keep_classes 1,3,5), or
+    with -expand_symmetry <group> symmetry-expand the particle table. Host
+    only: `device` is accepted for the common signature."""
+    params = _project_params(argv)
+    from pyp_tpu_torch.analysis.scores import expand_symmetry, select_classes
+    from pyp_tpu_torch.io import cistem
+
+    sym = str(params.get("expand_symmetry") or "")
+    if sym:
+        table = cistem.read_parameters("stack.cistem")
+        out = expand_symmetry(table, sym)
+        cistem.write_parameters(out, "stack.cistem")
+        print(json.dumps({"expanded": out.n_rows, "from": table.n_rows,
+                          "symmetry": sym}))
+        return 0
+    spec = str(params.get("keep_classes") or "")
+    if not spec:
+        logger.error("kselection needs -keep_classes <comma list>")
+        return 1
+    keep = {int(tok) for tok in spec.replace(",", " ").split()}
+    table = cistem.read_parameters("stack.cistem")
+    table, mask = select_classes(table, keep)
+    cistem.write_parameters(table, "stack.cistem")
+    print(json.dumps({"kept": int(mask.sum()), "total": int(len(mask)),
+                      "classes": sorted(keep)}))
     return 0
 
 
@@ -374,15 +706,17 @@ def mode_mask(argv, device="cuda"):
 
 
 PORTED = {"spr": mode_spr, "extract": mode_extract, "gain": mode_gain,
-          "refine": mode_refine, "postprocess": mode_postprocess,
+          "refine": mode_refine, "classify2d": mode_classify2d,
+          "classify3d": mode_classify3d, "clean": mode_clean,
+          "kselection": mode_kselection, "postprocess": mode_postprocess,
           "fsc": mode_fsc, "mask": mode_mask}
 
 
 def main(argv=None, device="cuda"):
     """Entry point: `main([mode, ...], device=...)` for the ported modes
-    (spr, extract, gain, refine, postprocess, fsc, mask). Returns the exit
-    code; other modes
-    are not yet ported and return 2."""
+    (spr, extract, gain, refine, classify2d, classify3d, clean,
+    kselection, postprocess, fsc, mask). Returns the exit code; other
+    modes are not yet ported and return 2."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)

@@ -60,14 +60,35 @@ def make_dataset(n_particles=4096, box=128, pixel=1.0, noise_x=3.0,
     float32."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
-    mask = soft_spherical_mask(box, box * 0.35, 4.0).numpy()
-    vol = rng.randn(box, box, box).astype(np.float32) * mask
-    vol = lowpass_filter_3d(torch.from_numpy(vol).to(dev), pixel,
-                            max(content_a, 2.0 * pixel)).cpu().numpy() * 10.0
-
+    vol = phantom(rng, box, pixel, content_a, dev)
     phi = rng.uniform(0, 360, n_particles).astype(np.float32)
     theta = np.degrees(np.arccos(rng.uniform(-1, 1, n_particles))).astype(np.float32)
     psi = rng.uniform(0, 360, n_particles).astype(np.float32)
+    return {"volume": vol, **project_particles(
+        vol, rng, phi, theta, psi, pixel, noise_x, shift_max, dev, batch)}
+
+
+def phantom(rng, box=128, pixel=1.0, content_a=5.0, device="cpu"):
+    """The truth: white noise from `rng` inside a sphere of radius
+    0.35 box, low-passed to `content_a` Å, times 10 (numpy float32)."""
+    mask = soft_spherical_mask(box, box * 0.35, 4.0).numpy()
+    vol = rng.randn(box, box, box).astype(np.float32) * mask
+    return lowpass_filter_3d(torch.from_numpy(vol).to(resolve_device(device)),
+                             pixel, max(content_a, 2.0 * pixel)
+                             ).cpu().numpy() * 10.0
+
+
+def project_particles(vol, rng, phi, theta, psi, pixel=1.0, noise_x=3.0,
+                      shift_max=4.0, device="cpu", batch=512):
+    """Particles of `vol` at the given angles: shifts uniform in
+    +-shift_max px and defoci uniform in 0.8-2.8 µm (400 Å astigmatism,
+    random angle) drawn from `rng`, the CTF-modulated central slices
+    shifted, then white noise `noise_x` times each batch's signal std.
+    Returns a dict: stack, ctf_params, phi, theta, psi, shifts (numpy
+    float32)."""
+    dev = resolve_device(device)
+    box = vol.shape[-1]
+    n_particles = len(phi)
     shifts = rng.uniform(-shift_max, shift_max, (n_particles, 2)).astype(np.float32)
     df = rng.uniform(8000, 28000, n_particles).astype(np.float32)
     ctf_params = np.stack(
@@ -89,8 +110,8 @@ def make_dataset(n_particles=4096, box=128, pixel=1.0, noise_x=3.0,
         imgs = fs.fourier_to_image(F, box).cpu().numpy()
         noise = rng.randn(*imgs.shape).astype(np.float32)
         stack[lo:hi] = imgs + noise * noise_x * imgs.std()
-    return {"volume": vol, "stack": stack, "ctf_params": ctf_params,
-            "phi": phi, "theta": theta, "psi": psi, "shifts": shifts}
+    return {"stack": stack, "ctf_params": ctf_params, "phi": phi,
+            "theta": theta, "psi": psi, "shifts": shifts}
 
 
 def starting_map(volume, pixel=1.0, resolution=20.0):

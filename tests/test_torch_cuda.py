@@ -32,6 +32,12 @@ model_map_fit cc within 1e-4 and the same shift; the loop with every
 reconstruction option >= 90% of poses within 1°, map cc >= 0.99, the
 same files; the fsc and mask modes' files atol 1e-4 / 1e-5.
 
+The classification slice: the gather E-step through the kernel (one
+launch) and the polar E-step >= 95% / 90% of particles with the same
+class, psi and shift, scores within 1e-4; the M-step at the same
+alignment atol 1e-4 * max; one classify3d_iteration >= 90% of
+assignments equal, class maps cc >= 0.99.
+
 The preprocessing slice (a 12 x 128² movie with a planted drift, a 512²
 micrograph): alignment shifts within 1e-2 px and averages atol 1e-4 *
 max|average| (small and camera-sized path); periodogram rtol 1e-4; fit_ctf
@@ -576,3 +582,95 @@ def test_process_micrograph_and_extract_stack_cuda_match_cpu(tmp_path):
     np.testing.assert_allclose(stg, stc, atol=1e-3 * np.abs(stc).max())
     np.testing.assert_array_equal(tg["original_x_position"],
                                   tc["original_x_position"])
+
+
+# ---- ab initio and classification (2D gather / polar E-steps, M-step,
+# one 3D classification iteration) ----------------------------------------
+
+def _class_avgs(data):
+    """Two class averages: projections of the map at two orientations."""
+    R = torch.as_tensor(np.array([[[1, 0, 0], [0, 1, 0], [0, 0, 1]],
+                                  [[0, 0, 1], [0, 1, 0], [-1, 0, 0]]],
+                                 np.float32))
+    F = fs.volume_to_fourier(on(data["volume"], "cpu"))
+    return fs.fourier_to_image(fs.project(F, R, N), N).numpy()
+
+
+def test_align_to_classes_through_the_kernel(data):
+    from pyp_tpu_torch.ops import refine2d
+
+    avgs = _class_avgs(data)
+    psis = np.arange(0.0, 360.0, 15.0, dtype=np.float32)
+    pts = r3.make_mask_points(N, PIXEL, 100.0, 3.0 * PIXEL)
+    grid = r3.make_shift_grid(3.0, 1.0)
+
+    def run(dev):
+        return refine2d.align_to_classes(
+            on(data["stack"], dev), on(data["ctf_params"], dev),
+            on(avgs, dev), on(psis, dev), on(pts, dev), on(grid, dev), N,
+            PIXEL)
+
+    launches = kernels.shift_scored_match.launches
+    out = [x.cpu().numpy() for x in run("cuda")]
+    assert kernels.shift_scored_match.launches == launches + 1
+    ref = [x.numpy() for x in run("cpu")]
+    same = ((out[0] == ref[0]) & (out[1] == ref[1])
+            & np.all(np.abs(out[2] - ref[2]) < 1e-3, axis=1))
+    assert same.mean() >= 0.95, same
+    np.testing.assert_allclose(out[3], ref[3], atol=1e-4)
+
+
+def test_polar_estep_and_mstep_cuda_match_cpu(data):
+    from pyp_tpu_torch.ops import refine2d
+
+    avgs = _class_avgs(data)
+    key = (N, PIXEL, 100.0, 3.0 * PIXEL, 3.0, 1.0, 300.0, 2.7, 0.07)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p2d = refine2d.Polar2D.get(*key, device=dev)
+        Xp, wr = p2d.restore(data["stack"], data["ctf_params"])
+        k, psi, sh, sc = refine2d.align_to_classes_polar(Xp, wr, avgs, p2d)
+        a, o = refine2d.update_class_averages(
+            on(data["stack"], dev), on(data["ctf_params"], dev), k, psi, sh,
+            torch.ones(len(k), device=dev), N, 2, PIXEL)
+        out[dev] = [x.cpu().numpy() for x in (k, psi, sh, sc, a, o)]
+    g, c = out["cuda"], out["cpu"]
+    same = (g[0] == c[0]) & (np.abs(g[1] - c[1]) < 1e-3)
+    assert same.mean() >= 0.9, same
+    np.testing.assert_allclose(g[3], c[3], atol=1e-4)
+    if same.all():
+        np.testing.assert_allclose(g[4], c[4], rtol=0,
+                                   atol=1e-4 * np.abs(c[4]).max())
+        np.testing.assert_array_equal(g[5], c[5])
+
+
+def test_classify3d_iteration_cuda_matches_cpu(data):
+    from pyp_tpu_torch.pipeline import classify3d
+
+    vol = data["volume"]
+    ax = np.arange(N) - N // 2
+    r = np.sqrt((ax[None, None, :] - 6) ** 2 + ax[None, :, None] ** 2
+                + ax[:, None, None] ** 2)
+    refs = [vol, (vol + np.percentile(vol, 99) * np.clip(4.0 - r, 0, 1)
+                  ).astype(np.float32)]
+    params = schema.defaults()
+    params.update({"scope_pixel": PIXEL, "class_num": 2, "refine_rhref": "6",
+                   "class_rhcls": 6.0, "refine_rlref": 40.0,
+                   "refine_dang": "15", "particle_sym": "C1"})
+    occ = np.full((len(data["stack"]), 2), 50.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        table = cistem.Table.zeros(len(data["stack"]))
+        table["pixel_size"] = np.full(len(data["stack"]), PIXEL)
+        table["defocus_1"] = data["ctf_params"][:, 0]
+        table["defocus_2"] = data["ctf_params"][:, 1]
+        table["defocus_angle"] = data["ctf_params"][:, 2]
+        p = truth_poses(data)
+        table["phi"], table["theta"], table["psi"] = p[:, 0], p[:, 1], p[:, 2]
+        table["y_shift"], table["x_shift"] = p[:, 3] * PIXEL, p[:, 4] * PIXEL
+        out[dev] = classify3d.classify3d_iteration(
+            data["stack"], table, refs, occ, params, 2, device=dev)
+    (tg, rg, og, _), (tc, rc, oc, _) = out["cuda"], out["cpu"]
+    assert np.mean(tg["best_2d_class"] == tc["best_2d_class"]) >= 0.9
+    for a, b in zip(rg, rc):
+        assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.99

@@ -370,6 +370,13 @@ def test_refused_preprocessing_options_raise_by_name(flags, word, tmp_path,
     assert not list(tmp_path.glob("*.meta.npz"))
 
 
+def test_copied_modules_are_byte_identical():
+    """The port's copies of JAX-free modules that it keeps unchanged."""
+    for rel in ("analysis/occupancies.py",):
+        assert ((REPO / "pyp_tpu_torch" / rel).read_bytes()
+                == (REPO / "pyp_tpu" / rel).read_bytes()), rel
+
+
 ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "refine_batch", "FrmConfig", "postprocess_latest",
                 "cli_postprocess", "cli_fsc", "cli_mask", "local_resolution",
@@ -378,7 +385,10 @@ ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "align_movie_patches", "fit_ctf", "fit_ctf_micrograph",
                 "fit_ctf_local", "pick_particles", "detect_gold_beads",
                 "extract_particles", "extract_from_frames", "cli_spr",
-                "cli_extract", "cli_gain"]
+                "cli_extract", "cli_gain", "ab_initio", "ab_initio_frm",
+                "mean_particle_score", "classify2d", "classify2d_staged",
+                "classify3d_loop", "classify3d_iteration", "align_volumes",
+                "cli_refine_abinit", "cli_classify2d", "cli_classify3d"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -387,8 +397,10 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     resolve_device where there is no card: none carries on on the CPU."""
     from pyp_tpu_torch.analysis import modelfit
     from pyp_tpu_torch.io.metadata import ItemMetadata
-    from pyp_tpu_torch.ops import (ctf_fit, extract, frm, motion, pick,
-                                   reconstruct, refine3d)
+    from pyp_tpu_torch.ops import (ab_initio, ctf_fit, extract, frm, motion,
+                                   pick, reconstruct, refine2d, refine3d,
+                                   template_match)
+    from pyp_tpu_torch.pipeline import classify3d
     from pyp_tpu_torch.pipeline import refine as tref
     from pyp_tpu_torch.pipeline import spr as tspr
     from pyp_tpu_torch.postprocess import core as post
@@ -408,7 +420,24 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     done["average"], done["box"] = stack[0], np.zeros((1, 3))
     done.save()
     coords = np.array([[8, 8]])
+    tmrc.write(stack, "stack.mrc")
+    tcistem.write_parameters(table, "stack.cistem")
     calls = {
+        "ab_initio": lambda: ab_initio.ab_initio(stack, cp, 2.0),
+        "ab_initio_frm": lambda: ab_initio.ab_initio_frm(stack, cp, 2.0),
+        "mean_particle_score": lambda: ab_initio.mean_particle_score(
+            stack, cp, poses, vol, 2.0, 8.0),
+        "classify2d": lambda: refine2d.classify2d(stack, cp, 2, 2.0),
+        "classify2d_staged": lambda: refine2d.classify2d_staged(
+            stack, cp, params, 2.0),
+        "classify3d_loop": lambda: classify3d.classify3d_loop(
+            stack, table, vol, params, work_dir="unused"),
+        "classify3d_iteration": lambda: classify3d.classify3d_iteration(
+            stack, table, [vol, vol], np.full((2, 2), 50.0), params, 2),
+        "align_volumes": lambda: template_match.align_volumes(vol, vol),
+        "cli_refine_abinit": lambda: tcli.main(["refine", "-refine_abinit"]),
+        "cli_classify2d": lambda: tcli.main(["classify2d"]),
+        "cli_classify3d": lambda: tcli.main(["classify3d"]),
         "process_micrograph": lambda: tspr.process_micrograph(
             {"name": "m", "frames": stack}, params),
         "extract_stack": lambda: tspr.extract_stack(["done"], params),

@@ -2,9 +2,10 @@
 from the sources in this checkout, checks each against its plain PyTorch
 version at the shapes the main paths give it, then drives the SPA
 refinement loop through `pyp_tpu_torch.cli.main` on a synthetic
-4,096-particle, box-128 dataset, once per engine, and the preprocessing
+4,096-particle, box-128 dataset, once per engine, the preprocessing
 path (movies to a particle stack) on three synthetic 40 x 4096² movies,
-and checks each result against the ground truth:
+and the tomography path on a synthetic 41-tilt series, and checks each
+result against the ground truth:
 
   slice      the gather engine (the path of the shift_scored_match kernel);
   frm_polar  one FRM batch with the matmul and the gather polar sampler;
@@ -52,6 +53,38 @@ classification (`tools/e2e_class`, on e2e_spa's truth):
   classify3d  `classify3d` on two states of 2,048 particles at consensus
              poses, FRM, focused and gather: purity >= 0.8, class maps
              closer to their own state; then `kselection` and `clean`.
+
+and, after the preprocessing phases, tomography (`tools/e2e_tomo`: 41
+tilts of 4096² at 1 Å/px, -60° to 60° in 3° steps, a 3° tilt axis,
+shifts of +-40 px, defocus 3-4 µm, particles, virions, gold beads, a
+filament and a membrane sheet with known geometry):
+
+  tomo_synthesize  the series as ts01.mrc (MRC mode 1) + ts01.tlt;
+  tomo       `cli.main(["tomo", ...])` at the schema's defaults plus
+             -tomo_spk_method auto: axis angle within 0.5°, median
+             per-tilt shift error < 1 binned px, mean defocus within 2%,
+             tomogram cc with the truth > 0.6 in the central slab, pick
+             recall >= 0.8 within one particle radius, a resumed call
+             under a tenth of the first;
+  tomo_options  (a) fiducial alignment with bead erasure, dose
+             weighting, CTF correction, handedness and halves (>= 4
+             beads, the alignment bars, the planted hand, both halves);
+             from copies of `tomo`'s bundle (b) SART (cc > 0.6), (c)
+             surface picking (the refined surfaces' centres within 2
+             voxels of the virions', radii within 10%), (d) template matching with the planted
+             particle's map (recall >= 0.8), (e) filament picking (picks
+             with a tangent prior each, inside the volume; their median
+             distance to the planted axis read, not barred), (f) membrane
+             segmentation (>= 50% of the sheet's voxels in the mask), (g)
+             bm4d, nad and deconv (finite volumes);
+  tomo_mdoc  the .mdoc path: 41 four-frame 4096² tilt movies assembled,
+             then the alignment and CTF bars;
+  tomo_layers  each layer's time at full size, WBP also at 41 x 1024² ->
+             256 x 1024² (voxels/s beside its bound);
+  tomo_thick  `tomo` on the same field with its content spread through
+             the thickness: mean defocus within 2%; the alignment,
+             tomogram cc and recall read without bars (the known limit
+             of patch tracking).
 
     python3 chip_smoke.py
 
@@ -1211,6 +1244,510 @@ def phase_preprocess(volume):
         phase_extract(project, truth)
         phase_spr_refine(project, volume)
 
+# ---------------------------------------------------------------------------
+# tomography: tools/e2e_tomo's series through cli.main(["tomo", ...])
+# ---------------------------------------------------------------------------
+
+TOMO_AXIS_BAR_DEG = 0.5        # axis angle within 0.5° of the planted 3°
+TOMO_SHIFT_BAR_PX = 1.0        # median per-tilt shift error, binned px
+TOMO_DEFOCUS_BAR_REL = 0.02    # mean defocus within 2%
+TOMO_CC_BAR = 0.6              # tomogram vs truth, central slab
+TOMO_RECALL_BAR = 0.8          # picks within one particle radius
+TOMO_MIN_BEADS = 4
+TOMO_VIRION_CENTRE_BAR_VOX = 2.0
+TOMO_VIRION_RADIUS_BAR_REL = 0.10
+TOMO_SHEET_BAR = 0.5           # share of the sheet's voxels in the mask
+TOMO_FILAMENT_READ_VOX = 2.0   # the picks' median distance to the rod, read
+TOMO_ALI_BIN, TOMO_REC_PIXEL = 4, 8.0   # the schema's binnings at 1 Å/px
+TOMO_SLAB_HALF = 16            # the central slab: +-16 of 256 slices
+TOMO_MAX_OFFSET_VOX = 4        # the alignment's gauge: a global shift
+
+
+class _TomoTruth:
+    """The planted series and its truth tomogram on the reconstruction
+    grid, with the tomogram's gauge offset (the integer 3D shift that best
+    superposes it on the truth) from the `tomo` run."""
+
+    def __init__(self, truth):
+        self.truth = truth
+        self.volume = None
+        self.offset = (0, 0, 0)
+
+    def tomogram_truth(self, shape):
+        from pyp_tpu_torch.tools import e2e_tomo
+
+        if self.volume is None or tuple(self.volume.shape) != tuple(shape):
+            self.volume = e2e_tomo.truth_tomogram(self.truth, shape,
+                                                  TOMO_REC_PIXEL)
+        return self.volume
+
+    def voxels(self, points_a, shape):
+        from pyp_tpu_torch.tools import e2e_tomo
+
+        return (e2e_tomo.rec_voxel(points_a, shape, TOMO_REC_PIXEL)
+                + np.asarray(self.offset))
+
+
+def _tomo_meta(project):
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    return ItemMetadata("ts01", project, mode="tomo").load()
+
+
+def _tomo_alignment(meta, truth, failures, tag):
+    """The alignment and CTF bars on a bundle: a dict of the readings."""
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    xf, ctf = meta["xf"], meta["ctf"]
+    err = e2e_tomo.shift_errors_px(xf, truth, TOMO_ALI_BIN,
+                                   meta.scalars["xf_shift_sign"])
+    row = {"axis_angle_deg": float(xf[0, 2]),
+           "axis_planted_deg": truth["axis_angle"],
+           "axis_err_deg": e2e_tomo.axis_error_deg(xf, truth),
+           "shift_err_median_px": float(np.median(err)),
+           "shift_err_max_px": float(err.max()),
+           "mean_defocus_A": float(np.mean(ctf[:, :2])),
+           "mean_defocus_planted_A": float(np.mean(truth["defoci"])),
+           "defocus_rel_err": e2e_tomo.defocus_rel_error(ctf, truth)}
+    for key, ok in (("axis_err_deg", row["axis_err_deg"] <= TOMO_AXIS_BAR_DEG),
+                    ("shift_err_median_px",
+                     row["shift_err_median_px"] < TOMO_SHIFT_BAR_PX),
+                    ("defocus_rel_err",
+                     row["defocus_rel_err"] < TOMO_DEFOCUS_BAR_REL)):
+        if not ok:
+            failures.append(f"{tag}: {key} = {row[key]}")
+    return row
+
+
+def _tomo_cc(path, tt, failures, tag, find_offset=False):
+    """cc of a written tomogram with the truth in the central slab."""
+    import torch
+
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    rec = mrc.read(path).astype(np.float32)
+    truth_vol = tt.tomogram_truth(rec.shape)
+    rec = torch.as_tensor(rec, device=truth_vol.device)
+    if find_offset:
+        tt.offset = e2e_tomo.best_offset(rec, truth_vol, TOMO_MAX_OFFSET_VOX)
+    cc = e2e_tomo.slab_cc(rec, truth_vol, tt.offset, half=TOMO_SLAB_HALF)
+    if not np.isfinite(rec.cpu().numpy()).all():
+        failures.append(f"{tag}: non-finite tomogram")
+    if not cc > TOMO_CC_BAR:
+        failures.append(f"{tag}: tomogram cc {cc:.4f} not above {TOMO_CC_BAR}")
+    return cc, tuple(rec.shape)
+
+
+def _fork(base, dst, drop=("box",)):
+    """A copy of the `tomo` project whose bundle lacks `drop` (no flag
+    forces the picking again)."""
+    import shutil
+
+    shutil.copytree(base, dst)
+    path = os.path.join(dst, "ts01.meta.npz")
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files if k not in drop}
+    np.savez_compressed(path, **arrays)
+    return dst
+
+
+def phase_tomo_synthesize(data_dir):
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    (truth, nbytes), seconds = _sync_s(lambda: e2e_tomo.write_series(
+        data_dir, device="cuda", **e2e_tomo.SERIES))
+    emit({"phase": "tomo_synthesize", "seconds": seconds, "bytes": nbytes,
+          "tilts": len(truth["angles"]), "size": truth["size"],
+          "particles_planted": len(truth["particles"]),
+          "virions_planted": len(truth["virions"]),
+          "beads_planted": len(truth["beads"])})
+    return _TomoTruth(truth)
+
+
+def phase_tomo(data_dir, root, tt):
+    """`tomo` at the schema's defaults plus -tomo_spk_method auto on
+    ts01.mrc + .tlt, held to the planted truth; then the same call again,
+    which must only resume. Returns (kernel launches, project)."""
+    import torch
+
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    project = os.path.join(root, "tomo")
+    os.makedirs(project)
+    argv = e2e_tomo.TOMO_ARGS + ["-data_path", os.path.join(data_dir, "ts01.mrc")]
+    kernels.shift_scored_match.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _StageTimes() as stages:
+        merge, wall = _cli_json(argv, project)
+    launches = kernels.shift_scored_match.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    failures = []
+    meta = _tomo_meta(project)
+    row = {"phase": "tomo", "seconds": wall, "launches": launches,
+           "max_memory_allocated_GiB": peak,
+           "stages_s": dict(stages.rows), "particles": merge["particles"],
+           **_tomo_alignment(meta, tt.truth, failures, "tomo")}
+    cc, shape = _tomo_cc(os.path.join(project, "ts01.rec.mrc"), tt, failures,
+                         "tomo", find_offset=True)
+    planted = tt.voxels(tt.truth["particles"], shape)
+    rad = tt.truth["particle_radius"] / TOMO_REC_PIXEL
+    row.update(tomogram_shape=list(shape), tomogram_cc=cc,
+               gauge_offset_vox=list(tt.offset),
+               recall=e2e_tomo.recall(meta["box"][:, :3], planted, rad),
+               picks=int(len(meta["box"])), planted=len(planted),
+               tilt_panel=os.path.exists(os.path.join(project, "ts01_tilts.png")))
+    if not row["recall"] >= TOMO_RECALL_BAR:
+        failures.append(f"tomo: recall {row['recall']:.3f}")
+    with _StageTimes() as again:
+        merge2, wall2 = _cli_json(argv, project)
+    row.update(resume_seconds=wall2, resume_stages_run=len(again.rows))
+    emit(row)
+    if again.rows or merge2 != merge:
+        failures.append(f"the second call ran {again.rows} or merged {merge2}")
+    if not wall2 < RESUME_BAR * wall:
+        failures.append(f"the resumed call took {wall2:.2f} s, not under "
+                        f"{RESUME_BAR} of {wall:.2f} s")
+    if launches:
+        failures.append(f"tomo launched shift_scored_match {launches} times")
+    if failures:
+        raise RuntimeError("tomo bars failed: " + "; ".join(failures))
+    return launches, project
+
+
+class _Handedness:
+    """Collects the pipeline's "defocus handedness" log lines."""
+
+    def __init__(self):
+        import logging
+
+        outer = self
+        self.hands = []
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if "defocus handedness" in msg:
+                    outer.hands.append(int(msg.rsplit(" ", 1)[-1]))
+
+        self.handler = Handler()
+        self.logger = logging.getLogger("pyp_tpu_torch.tomo")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def phase_tomo_options(data_dir, root, tt, base):
+    """The options of `pipeline/tomo`, each in its own project: (a) a
+    fiducial alignment with bead erasure, dose weighting, CTF phase
+    flipping, handedness and halves from scratch; the others from a copy
+    of `tomo`'s bundle: (b) SART, (c) surface picking, (d) template
+    matching, (e) filament picking, (f) membrane segmentation, (g) the
+    classical denoisers and the deconvolution."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    failures = []
+    truth = tt.truth
+    data = ["-data_path", os.path.join(data_dir, "ts01.mrc")]
+
+    # (a) from scratch
+    proj = os.path.join(root, "opt_a")
+    os.makedirs(proj)
+    flags = ["-tomo_ali_fiducial", "10", "-tomo_rec_erase_fiducials",
+             "-tomo_rec_dose_weighting", "-tomo_rec_ctf_correct",
+             "-tomo_hand_detect", "-tomo_rec_generate_halves"]
+    with _Handedness() as hd, _StageTimes() as stages:
+        _, wall = _cli_json(e2e_tomo.TOMO_ARGS + data + flags, proj)
+    meta = _tomo_meta(proj)
+    beads = int(len(meta["fid"])) if meta.is_done("fid") else 0
+    row = {"phase": "tomo_options", "option": "a_fiducial", "seconds": wall,
+           "stages_s": dict(stages.rows), "beads": beads,
+           "handedness": hd.hands, "hand_planted": truth["hand"],
+           "halves": all(os.path.exists(os.path.join(proj, f"ts01.rec_{h}.mrc"))
+                         for h in ("half1", "half2")),
+           **_tomo_alignment(meta, truth, failures, "a_fiducial")}
+    emit(row)
+    if beads < TOMO_MIN_BEADS:
+        failures.append(f"a_fiducial: {beads} beads")
+    if hd.hands != [truth["hand"]]:
+        failures.append(f"a_fiducial: handedness {hd.hands}")
+    if not row["halves"]:
+        failures.append("a_fiducial: halves not written")
+
+    def run(tag, argv, drop=("box",)):
+        proj = _fork(base, os.path.join(root, tag), drop)
+        with _StageTimes() as stages:
+            _, wall = _cli_json(["tomo"] + argv, proj)
+        return proj, wall, dict(stages.rows)
+
+    # (b) SART
+    proj, wall, st = run("opt_b", ["-tomo_rec_method", "sart", "-tomo_rec_force"],
+                         drop=())
+    cc, _ = _tomo_cc(os.path.join(proj, "ts01.rec.mrc"), tt, failures, "b_sart")
+    emit({"phase": "tomo_options", "option": "b_sart", "seconds": wall,
+          "stages_s": st, "tomogram_cc": cc})
+
+    shape = tuple(tt.volume.shape)
+    # (c) surface picking: the planted virions' centres and radii. The
+    # centre read is the centroid of the refined surface's picks nearest
+    # each planted virion (the `vir` row keeps the integer centre of the
+    # sphere detection, reported beside it), the radius the `vir` row's
+    # mean refined radius
+    proj, wall, st = run("opt_c", ["-tomo_spk_method", "surface",
+                                   "-tomo_vir_rad", "300",
+                                   "-tomo_vir_search_band", "0.5",
+                                   "-tomo_vir_detect_max", "16"])
+    meta = _tomo_meta(proj)
+    vir, picks = meta["vir"], meta["box"][:, :3]
+    planted = tt.voxels([v["centre"] for v in truth["virions"]], shape)
+    radii = np.array([v["radius"] for v in truth["virions"]]) / TOMO_REC_PIXEL
+    owner = np.argmin(np.linalg.norm(picks[:, None] - planted[None], axis=-1), 1)
+    seed_err, centre_err, radius_err = [], [], []
+    for i, (c, r) in enumerate(zip(planted, radii)):
+        d = np.linalg.norm(vir[:, :3] - c, axis=1)
+        j = int(np.argmin(d))
+        near = picks[(owner == i) & (np.abs(np.linalg.norm(picks - c, axis=1) - r)
+                                     < 0.5 * r)]
+        seed_err.append(float(d[j]))
+        centre_err.append(float(np.linalg.norm(near.mean(0) - c))
+                          if len(near) else float("inf"))
+        radius_err.append(float(abs(vir[j, 3] / r - 1.0)))
+    emit({"phase": "tomo_options", "option": "c_surface", "seconds": wall,
+          "stages_s": st, "virions_found": int(len(vir)),
+          "surface_picks": int(len(picks)), "seed_centre_err_vox": seed_err,
+          "surface_centre_err_vox": centre_err, "radius_rel_err": radius_err})
+    if not (max(centre_err) <= TOMO_VIRION_CENTRE_BAR_VOX
+            and max(radius_err) <= TOMO_VIRION_RADIUS_BAR_REL):
+        failures.append(f"c_surface: centre errors {centre_err}, radius "
+                        f"errors {radius_err}")
+
+    # (d) template matching against the planted particle at 30°
+    ref = os.path.join(root, "particle.mrc")
+    mrc.write(e2e_tomo.particle_map(truth, 32, TOMO_REC_PIXEL).cpu().numpy(),
+              ref, pixel_size=TOMO_REC_PIXEL)
+    proj, wall, st = run("opt_d", ["-tomo_spk_method", "template",
+                                   "-tomo_pick_ref", ref])
+    box = _tomo_meta(proj)["box"]
+    rec = e2e_tomo.recall(box[:, :3], tt.voxels(truth["particles"], shape),
+                          truth["particle_radius"] / TOMO_REC_PIXEL)
+    emit({"phase": "tomo_options", "option": "d_template", "seconds": wall,
+          "stages_s": st, "picks": int(len(box)), "recall": rec})
+    if not rec >= TOMO_RECALL_BAR:
+        failures.append(f"d_template: recall {rec:.3f}")
+
+    # (e) filament picking: picks with a tangent prior each, inside the
+    # volume. Their median distance to the planted axis is read against
+    # 2 voxels without failing the phase: the reference's Frangi picker,
+    # which both packages run, misses the rod in this crowded tomogram
+    # (tests/test_torch_template_match.py holds both packages to the same
+    # picks on this series at half resolution; ROADMAP Queue 3)
+    proj, wall, st = run("opt_e", ["-tomo_spk_method", "filament"])
+    meta = _tomo_meta(proj)
+    box = meta["box"]
+    f = truth["filament"]
+    p0, p1 = tt.voxels([f["p0"], f["p1"]], shape)
+    dist = e2e_tomo.distance_to_segment(box[:, :3], p0, p1)
+    med = float(np.median(dist)) if len(dist) else float("inf")
+    at_face = ((box[:, :3] < 1) | (box[:, :3] > np.array(shape) - 2)).any(1)
+    emit({"phase": "tomo_options", "option": "e_filament", "seconds": wall,
+          "stages_s": st, "picks": int(len(box)), "median_distance_vox": med,
+          "median_within_2_vox": med <= TOMO_FILAMENT_READ_VOX,
+          "picks_within_2_vox": int((dist <= 2.0).sum()),
+          "picks_at_faces": int(at_face.sum())})
+    inside = ((box[:, :3] >= 0) & (box[:, :3] <= np.array(shape) - 1)).all()
+    if not (len(box) and inside and meta["spk_eulers"].shape == (len(box), 3)):
+        failures.append(f"e_filament: {len(box)} picks, inside {inside}")
+
+    # (f) membrane segmentation: the planted sheet inside the mask
+    proj, wall, st = run("opt_f", ["-tomo_seg_open"], drop=())
+    mask = mrc.read(os.path.join(proj, "ts01.seg.mrc")) > 0.5
+    sheet = np.roll(e2e_tomo.sheet_voxels(truth, shape, TOMO_REC_PIXEL),
+                    tt.offset, (0, 1, 2))
+    inside = float(mask[sheet].mean())
+    emit({"phase": "tomo_options", "option": "f_segmentation", "seconds": wall,
+          "stages_s": st, "sheet_voxels": int(sheet.sum()),
+          "sheet_inside": inside, "membrane_fraction": float(mask.mean())})
+    if not inside >= TOMO_SHEET_BAR:
+        failures.append(f"f_segmentation: {inside:.3f} of the sheet inside")
+
+    # (g) the denoisers: finite volumes, walls reported
+    for method in ("bm4d", "nad", "deconv"):
+        proj, wall, st = run(f"opt_g_{method}",
+                             ["-denoise_method", method, "-tomo_rec_force"],
+                             drop=())
+        den = mrc.read(os.path.join(proj, "ts01.den.mrc"))
+        emit({"phase": "tomo_options", "option": f"g_{method}",
+              "seconds": wall, "stages_s": st, "finite": bool(np.isfinite(den).all())})
+        if not np.isfinite(den).all():
+            failures.append(f"g_{method}: non-finite volume")
+    if failures:
+        raise RuntimeError("tomo_options bars failed: " + "; ".join(failures))
+
+
+def phase_tomo_mdoc(root, tt):
+    """The .mdoc path: 41 tilt movies of 4 frames x 4096² through
+    assemble_tilt_series, then the alignment and CTF bars."""
+    import glob
+
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    movies = os.path.join(root, "mdoc")
+    (_, nbytes), synth_s = _sync_s(lambda: e2e_tomo.write_series(
+        movies, movies=True, device="cuda", **e2e_tomo.SERIES))
+    proj = os.path.join(root, "mdoc_project")
+    os.makedirs(proj)
+    argv = e2e_tomo.TOMO_ARGS + ["-data_path",
+                                 os.path.join(movies, "*.mdoc")]
+    with _StageTimes() as stages:
+        _, wall = _cli_json(argv, proj)
+    failures = []
+    st = dict(stages.rows)
+    n = len(glob.glob(os.path.join(movies, "ts01_*.mrc")))
+    row = {"phase": "tomo_mdoc", "synthesize_s": synth_s, "bytes": nbytes,
+           "movies": n, "seconds": wall, "stages_s": st,
+           "s_per_tilt_movie": st.get("tilt-series assembly", np.nan) / n,
+           **_tomo_alignment(_tomo_meta(proj), tt.truth, failures, "mdoc")}
+    emit(row)
+    if failures:
+        raise RuntimeError("tomo_mdoc bars failed: " + "; ".join(failures))
+
+
+def wbp_bound_ms(T, nz, ny, nx):
+    """(bound, bytes bound, operations bound) in ms of a backprojection of
+    T tilts (ny, nx) into (nz, ny, nx): each tilt read once and the volume
+    written once at the HBM rate; per voxel and tilt ~6 FP32 operations
+    (x' by two multiply-adds, the two-tap interpolation and the
+    accumulation by two more) at the FP32 peak."""
+    mem = 1e3 * 4.0 * (T * ny * nx + nz * ny * nx) / HBM_BYTES_S
+    ops = 1e3 * 6.0 * T * nz * ny * nx / FP32_FLOPS
+    return max(mem, ops), mem, ops
+
+
+def phase_tomo_layers(data_dir, tt):
+    """Each tomography layer's time at full size on ts01 (device-
+    synchronised medians), WBP also at the reference bench's shape."""
+    import torch
+
+    from pyp_tpu_torch.core.fft import bin_images
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.ops import ctf_fit, denoise_classic
+    from pyp_tpu_torch.ops import template_match as tm
+    from pyp_tpu_torch.ops import tomo
+    from pyp_tpu_torch.pipeline.spr import _upload
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    truth = tt.truth
+    ang = np.asarray(truth["angles"], np.float32)
+    raw, load_s = _sync_s(lambda: mrc.read(os.path.join(data_dir, "ts01.mrc")))
+    tilts, upload_s = _sync_s(lambda: _upload(raw, "cuda"))
+    del raw
+    tb, bin_s = _sync_s(lambda: bin_images(tilts, TOMO_ALI_BIN))
+    t2 = bin_images(tb, 2)
+    T, n = tb.shape[0], tb.shape[-1]
+    row = {"phase": "tomo_layers", "tilts": list(tilts.shape),
+           "load_s": load_s, "upload_s": upload_s, "bin4_s": bin_s}
+    row["prealign_ms"] = _median_ms(
+        lambda: tomo.prealign_tilt_series(tb, ang), reps=3)
+    shifts = tomo.prealign_tilt_series(tb, ang)
+    g = np.linspace(n * 0.25, n * 0.75, 3)
+    centers = np.array([(y, x) for y in g for x in g], np.float32)
+    row["track_patches_ms"] = _median_ms(lambda: tomo.track_patches(
+        tb, shifts, ang, centers, patch_size=64), reps=3)
+    tracks = tomo.track_patches(tb, shifts, ang, centers, patch_size=64)
+    _, row["solve_projection_model_robust_s"] = _sync_s(
+        lambda: tomo.solve_projection_model_robust(tracks, ang, (n, n)))
+    torch.cuda.reset_peak_memory_stats()
+    _, row["fit_ctf_tilt_series_s"] = _sync_s(lambda: ctf_fit.fit_ctf_tilt_series(
+        tilts, 1.0, tile=512, dfmin=20000.0, dfmax=50000.0, dfstep=250.0,
+        min_res=30.0, max_res=8.0))
+    row["fit_ctf_peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    del tilts
+    for tag, stack, nz in (("default", t2, 256), ("bench", tb, 256)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = _median_ms(lambda: tomo.wbp_reconstruct(stack, ang, thickness=nz),
+                        reps=5)
+        bound, mem, ops = wbp_bound_ms(T, nz, *stack.shape[-2:])
+        row[f"wbp_{tag}"] = {
+            "shape_in": list(stack.shape), "shape_out": [nz, *stack.shape[-2:]],
+            "ms": ms, "voxels_per_s": nz * stack.shape[-2] * stack.shape[-1] / (ms / 1e3),
+            "bound_ms": bound, "bound_bytes_ms": mem, "bound_ops_ms": ops,
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2**30}
+    vol = tomo.wbp_reconstruct(t2, ang, thickness=256)
+    _, row["sart_reconstruct_s"] = _sync_s(lambda: tomo.sart_reconstruct(
+        t2, ang, thickness=256, iterations=10))
+    df = np.asarray(truth["defoci"], np.float32)
+    row["ctf_correct_tilts_ms"] = _median_ms(lambda: tomo.ctf_correct_tilts(
+        t2, ang, df, TOMO_REC_PIXEL), reps=3)
+    tpl = e2e_tomo.particle_map(truth, 32, TOMO_REC_PIXEL)
+    rots = np.array([[0, 0, 0], [30, 30, 0], [60, 90, 30], [90, 120, 60]],
+                    np.float32)
+    row["match_template_3d_ms_per_rotation"] = _median_ms(
+        lambda: tm.match_template_3d(vol, tpl, rots), reps=3) / len(rots)
+    vrad = 300.0 / TOMO_REC_PIXEL
+    radii = np.linspace(0.75 * vrad, 1.25 * vrad, 5)
+    _, row["detect_spheres_s"] = _sync_s(lambda: tm.detect_spheres(vol, radii, 8))
+    v = truth["virions"][0]
+    c = e2e_tomo.rec_voxel([v["centre"]], vol.shape, TOMO_REC_PIXEL)[0]
+    _, row["refine_surface_sh_s_per_virion"] = _sync_s(lambda: tm.refine_surface_sh(
+        vol, c, v["radius"] / TOMO_REC_PIXEL, n_points=200, l_max=4))
+    _, row["nlm_denoise_3d_s"] = _sync_s(lambda: denoise_classic.nlm_denoise_3d(vol))
+    emit(row)
+    return row
+
+
+def phase_tomo_thick(root):
+    """`tomo` on `tools/e2e_tomo.THICK_SERIES`, the same field with its
+    content spread through the thickness: the CTF bar holds (defocus does
+    not depend on the alignment); the alignment, tomogram and recall are
+    read without bars, the known limit of patch tracking (PERF.md §7)."""
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    data_dir = os.path.join(root, "thick")
+    (truth, _), synth_s = _sync_s(lambda: e2e_tomo.write_series(
+        data_dir, device="cuda", **e2e_tomo.THICK_SERIES))
+    tt = _TomoTruth(truth)
+    proj = os.path.join(root, "thick_project")
+    os.makedirs(proj)
+    _, wall = _cli_json(e2e_tomo.TOMO_ARGS + [
+        "-data_path", os.path.join(data_dir, "ts01.mrc")], proj)
+    meta = _tomo_meta(proj)
+    unbarred = []
+    row = {"phase": "tomo_thick", "synthesize_s": synth_s, "seconds": wall,
+           **_tomo_alignment(meta, truth, unbarred, "thick")}
+    cc, shape = _tomo_cc(os.path.join(proj, "ts01.rec.mrc"), tt, unbarred,
+                         "thick", find_offset=True)
+    rad = truth["particle_radius"] / TOMO_REC_PIXEL
+    row.update(tomogram_cc=cc, gauge_offset_vox=list(tt.offset),
+               recall=e2e_tomo.recall(meta["box"][:, :3],
+                                      tt.voxels(truth["particles"], shape), rad),
+               picks=int(len(meta["box"])), unbarred_misses=unbarred)
+    emit(row)
+    if not row["defocus_rel_err"] < TOMO_DEFOCUS_BAR_REL:
+        raise RuntimeError(f"tomo_thick: defocus_rel_err = {row['defocus_rel_err']}")
+    if any("non-finite" in m for m in unbarred):
+        raise RuntimeError("tomo_thick: non-finite tomogram")
+
+
+def phase_tomography():
+    """The tomography phases on one synthetic series in a temporary
+    directory. Returns the kernel launches of the `tomo` run."""
+    with tempfile.TemporaryDirectory() as root:
+        data_dir = os.path.join(root, "data")
+        tt = phase_tomo_synthesize(data_dir)
+        launches, base = phase_tomo(data_dir, root, tt)
+        phase_tomo_options(data_dir, root, tt, base)
+        phase_tomo_mdoc(root, tt)
+        phase_tomo_layers(data_dir, tt)
+        phase_tomo_thick(root)
+    return launches
+
 
 def main():
     import torch
@@ -1235,13 +1772,14 @@ def main():
     gather2d = phase_classify2d()
     phase_classify3d()
     phase_preprocess(volume)
+    tomo_launches = phase_tomography()
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "shift_scored_match", "route": "cuda",
         "source": "pyp_tpu_torch/csrc/shift_scored_match.cu",
         "replaces": "pyp_tpu/ops/pallas_kernels.py:80",
         "launches": {"slice": launches, "abinit_classic": classic,
-                     "classify2d_gather": gather2d},
+                     "classify2d_gather": gather2d, "tomo": tomo_launches},
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "operations", "library_ms": k["library_ms"],

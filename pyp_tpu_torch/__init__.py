@@ -21,40 +21,49 @@ tensor-core GEMM with the shift max as its epilogue) — with reference
 auto-masking, per-particle defocus and beam-tilt refinement, and every
 reconstruction option of the JAX loop (score shaping, likelihood
 blurring, Ewald-sphere insertion, the sharpened final map, model fitting,
-matching projections); and the map modes `postprocess` (mask-corrected
-FSC, sharpening, local resolution), `fsc` and `mask`. The entry points
+matching projections); the map modes `postprocess` (mask-corrected
+FSC, sharpening, local resolution), `fsc` and `mask`; and tomography
+(`pipeline.tomo`, the `tomo` mode: tilt-series alignment, per-tilt CTF,
+WBP/SART reconstruction, denoising, segmentation and 3D picking over
+`ops.tomo`, `ops.template_match`, `ops.filament` and
+`ops.denoise_classic`). The entry points
 (`cli.main`, `pipeline.spr.process_micrograph`, `extract_stack`, the
 alignment, CTF-fit, picking and extraction functions of `ops`,
 `pipeline.refine.refine_loop`, `refinement_iteration`,
 `ops.reconstruct.reconstruct`, `ops.refine3d.refine_batch`,
 `ops.frm.FrmConfig`, `postprocess.core.postprocess_latest`,
 `postprocess.locres.local_resolution`,
-`analysis.modelfit.model_map_fit`) run on the card unless the caller
-passes `device="cpu"`.
+`analysis.modelfit.model_map_fit`, `pipeline.tomo.process_tilt_series`
+and the tomography ops) run on the card unless the caller passes
+`device="cpu"`.
 
 Layout:
   pyp_tpu_torch.config      — parameter schema, CLI flags, project file
   pyp_tpu_torch.io          — MRC, .cistem and PDB codecs, the STAR reader,
                               the per-item metadata bundles, the TIFF,
-                              EER and DM3/DM4 movie readers
+                              EER and DM3/DM4 movie readers, .mdoc, IMOD
+                              .xf / point models, coordinate files
   pyp_tpu_torch.utils       — logging, timers
   pyp_tpu_torch.stream      — the web platform's RPC client
   pyp_tpu_torch.sched       — job graphs and the local executor
   pyp_tpu_torch.core        — geometry, CTF model, FFT helpers, filters, FSC
   pyp_tpu_torch.ops         — motion correction, CTF fitting, picking,
                               extraction, Fourier-slice operators, FRM,
-                              refine3d, reconstruct, the CUDA kernels and
-                              their build helper
+                              refine3d, reconstruct, tilt-series
+                              alignment and reconstruction, template
+                              matching, filaments, denoisers, the CUDA
+                              kernels and their build helper
   pyp_tpu_torch.postprocess — masks, the corrected FSC, sharpening, local
                               resolution
   pyp_tpu_torch.analysis    — score shaping, model fitting, plots, saved
                               micrograph selections
-  pyp_tpu_torch.pipeline    — preprocessing (spr) and the refinement loop
+  pyp_tpu_torch.pipeline    — preprocessing (spr), tomography (tomo) and
+                              the refinement loop
   pyp_tpu_torch.tools       — synthetic datasets with ground truth
-                              (e2e_spa, e2e_spr), the refine profiler
+                              (e2e_spa, e2e_spr, e2e_class, e2e_tomo),
+                              the refine profiler
   pyp_tpu_torch.state       — state exchange with the JAX package
-  pyp_tpu_torch.cli         — the `spr`, `extract`, `gain`, `refine`,
-                              `postprocess`, `fsc` and `mask` modes
+  pyp_tpu_torch.cli         — the ported modes (cli.PORTED)
 """
 
 from __future__ import annotations

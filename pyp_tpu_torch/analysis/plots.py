@@ -1,7 +1,7 @@
 """Diagnostic plots of the SPA path — the port of `plot_ctf_fit`,
 `plot_drift`, `plot_fsc`, `plot_guinier`, `plot_iteration_changes`,
-`plot_occupancy_history` and `histogram_particle_scores` of
-pyp_tpu/analysis/plots.py.
+`plot_occupancy_history`, `histogram_particle_scores` and
+`plot_tilt_series_panel` of pyp_tpu/analysis/plots.py.
 matplotlib is optional: each function imports it when called and raises
 ImportError where it is missing, which callers turn into a warning and a
 skipped plot."""
@@ -149,6 +149,63 @@ def histogram_particle_scores(scores, threshold, out_path, title=""):
     if title:
         ax.set_title(title, fontsize=9)
     ax.legend(fontsize=8)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=110)
+    plt.close(fig)
+
+
+def plot_tilt_series_panel(angles, xf, ctf, out_path):
+    """Per-series alignment + CTF diagnostics: tilt-shift trajectory,
+    per-tilt defocus/astigmatism, and per-tilt fit quality (the reference's
+    plot_trajectory_raw + plot_tomo_ctf panels, analysis/plot/core.py:497,
+    :1678 — one combined sheet per tilt-series here).
+
+    angles: (T,) tilt angles in degrees; xf: (T, 3) [sy, sx, axis_angle]
+    from tilt alignment; ctf: (T, 5) [df1, df2, angast, cc, fit_res]."""
+    plt = _pyplot()
+    angles = np.asarray(angles)
+    xf = np.asarray(xf) if xf is not None else None
+    ctf = np.asarray(ctf) if ctf is not None else None
+    n_rows = 1 + (xf is not None) + (ctf is not None)
+    fig, axes = plt.subplots(n_rows, 2, figsize=(9, 2.6 * n_rows),
+                             squeeze=False)
+    order = np.argsort(angles)
+    ax = axes[0][0]
+    ax.plot(np.arange(len(angles)), angles, "o-", ms=3)
+    ax.set_xlabel("acquisition index")
+    ax.set_ylabel("tilt angle (°)")
+    ax.set_title("tilt scheme", fontsize=9)
+    axes[0][1].axis("off")
+    row = 1
+    if xf is not None:
+        ax = axes[row][0]
+        ax.plot(xf[order, 1], xf[order, 0], "o-", ms=3)
+        ax.set_xlabel("x shift (px)")
+        ax.set_ylabel("y shift (px)")
+        ax.set_title("tilt-shift trajectory (angle order)", fontsize=9)
+        ax.set_aspect("equal")
+        ax = axes[row][1]
+        ax.plot(angles[order], np.hypot(xf[order, 0], xf[order, 1]), "o-",
+                ms=3)
+        ax.set_xlabel("tilt angle (°)")
+        ax.set_ylabel("|shift| (px)")
+        ax.set_title(f"axis angle {xf[0, 2]:.1f}°", fontsize=9)
+        row += 1
+    if ctf is not None:
+        ax = axes[row][0]
+        ax.plot(angles[order], ctf[order, 0] / 1e4, "o-", ms=3,
+                label="df1")
+        ax.plot(angles[order], ctf[order, 1] / 1e4, "o-", ms=3,
+                label="df2")
+        ax.set_xlabel("tilt angle (°)")
+        ax.set_ylabel("defocus (µm)")
+        ax.legend(fontsize=7)
+        ax.set_title("per-tilt defocus", fontsize=9)
+        ax = axes[row][1]
+        ax.plot(angles[order], ctf[order, 4], "o-", ms=3, color="tab:red")
+        ax.set_xlabel("tilt angle (°)")
+        ax.set_ylabel("CTF fit resolution (Å)")
+        ax.set_title("per-tilt fit quality", fontsize=9)
     fig.tight_layout()
     fig.savefig(out_path, dpi=110)
     plt.close(fig)

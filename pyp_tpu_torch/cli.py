@@ -1,8 +1,9 @@
-"""Command-line entry point of the port: the `spr`, `extract`, `gain`,
-`refine`, `classify2d`, `classify3d`, `clean`, `kselection`,
+"""Command-line entry point of the port: the `spr`, `tomo`, `extract`,
+`gain`, `refine`, `classify2d`, `classify3d`, `clean`, `kselection`,
 `postprocess`, `fsc` and `mask` modes on a CUDA device.
 
     python -m pyp_tpu_torch.cli spr -data_path 'movies/*.mrc' -scope_pixel 1.0 ...
+    python -m pyp_tpu_torch.cli tomo -data_path 'series/*.mrc' -scope_pixel 1.0 ...
     python -m pyp_tpu_torch.cli extract -extract_box 128
     python -m pyp_tpu_torch.cli gain -data_path 'movies/*.mrc'
     python -m pyp_tpu_torch.cli refine -refine_maxiter 4 -refine_goldstandard ...
@@ -17,12 +18,15 @@
 
 `spr` preprocesses every movie `-data_path` matches (frame alignment, CTF
 estimation, picking) into one `<name>.meta.npz` bundle each, resuming
-from the bundles it finds; `extract` windows the picked particles of all
-bundles into stack.mrc + stack.cistem; `gain` estimates a gain reference
-from raw movies. `refine` reads stack.mrc, stack.cistem and
-initial_model.mrc (or -model_path) from the project directory, like
-`pyp_tpu refine`, and runs the refinement loop with the engine the
-parameters name (`-refine_engine frm`, the default, or `gather`); without
+from the bundles it finds; `tomo` aligns, CTF-fits, reconstructs and
+picks every tilt series -data_path matches (MRC stacks with a .tlt or
+.rawtlt sidecar, or SerialEM .mdoc files of tilt movies) into a
+`<name>.meta.npz` bundle and `<name>.rec.mrc` each; `extract` windows
+the picked particles of all bundles into stack.mrc + stack.cistem;
+`gain` estimates a gain reference from raw movies. `refine` reads
+stack.mrc, stack.cistem and initial_model.mrc (or -model_path) from the
+project directory, like `pyp_tpu refine`, and runs the refinement loop
+with the engine the parameters name (`-refine_engine frm`, the default, or `gather`); without
 an initial model, `-refine_abinit` first builds one by ab initio
 (`-abinit_engine frm`, the default, or `classic`) and writes it to
 initial_model.mrc. `classify2d` writes classes_2d.mrc and the
@@ -38,8 +42,9 @@ package's). `postprocess` sharpens the newest half maps under maps/
 arguments; `mask` writes <dataset>_mask.mrc. Each writes the files the
 JAX package's mode writes. Every other mode is not ported yet and exits
 non-zero; SLURM submission, the learned picker (`-detect_method nn`), the
-micrograph denoiser (`-denoise_spr n2n`) and `-prism_enable` raise
-NotImplementedError by name.
+micrograph denoiser (`-denoise_spr n2n`), `-prism_enable`, the trained
+tomogram denoisers (`-denoise_method n2n|wedge`) and the membrane network
+(`-tomo_vir_method nn`) raise NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -180,6 +185,60 @@ def mode_spr(argv, device="cuda"):
     LocalExecutor(max_workers=int(params.get("slurm_local_tasks") or 0)
                   or int(params.get("slurm_tasks") or 1)).run(graph)
     merge = graph.jobs["sprswarm.merge"]
+    print(json.dumps(merge.result, indent=1, default=str))
+    return 0 if merge.status == "done" else 1
+
+
+def mode_tomo(argv, device="cuda"):
+    """Per-series tomography (`pipeline/tomo.process_tilt_series`) of every
+    item -data_path (or -data_path_mdoc) matches, as a swarm of jobs on the
+    local executor followed by the merge; prints the merge summary. An
+    .mdoc item's tilt movies are frame-aligned and assembled first; an MRC
+    stack takes its angles from a .tlt/.rawtlt sidecar, else
+    linspace(-60, 60)."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.pipeline import tomo as tomo_pipe
+    from pyp_tpu_torch.sched import JobGraph, LocalExecutor
+
+    items = _discover_items(params)
+    if not items:
+        logger.error("no input files match data_path=%r", params.get("data_path"))
+        return 1
+    # refusals come before any job runs
+    if slurm_requested(params):
+        raise NotImplementedError(
+            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
+            "tomo is not ported; run it on the local executor")
+    tomo_pipe.check_ported(params)
+    dev = resolve_device(device)
+
+    def load_item(item):
+        if str(item["path"]).endswith(".mdoc"):
+            # raw-movie ingestion: per-tilt frame alignment + assembly
+            item.update(tomo_pipe.assemble_tilt_series(item["path"], params,
+                                                       device=dev))
+            return tomo_pipe.process_tilt_series(item, params, device=dev)
+        # pre-assembled stack; tilt angles from a sidecar .tlt/.rawtlt
+        for ext in (".tlt", ".rawtlt"):
+            tlt = Path(item["path"]).with_suffix(ext)
+            if tlt.exists():
+                item["angles"] = np.loadtxt(tlt)
+                break
+        else:
+            n = mrc.read_header(item["path"]).nz
+            item["angles"] = np.linspace(-60, 60, n)
+        return tomo_pipe.process_tilt_series(item, params, device=dev)
+
+    graph = JobGraph("tomo")
+    graph.swarm(
+        "tomoswarm", items, work_fn=load_item,
+        merge_fn=lambda results, missing: tomo_pipe.tomo_merge(results, missing),
+    )
+    LocalExecutor(max_workers=int(params.get("slurm_local_tasks") or 0)
+                  or int(params.get("slurm_tasks") or 1)).run(graph)
+    merge = graph.jobs["tomoswarm.merge"]
     print(json.dumps(merge.result, indent=1, default=str))
     return 0 if merge.status == "done" else 1
 
@@ -705,7 +764,8 @@ def mode_mask(argv, device="cuda"):
     return 0
 
 
-PORTED = {"spr": mode_spr, "extract": mode_extract, "gain": mode_gain,
+PORTED = {"spr": mode_spr, "tomo": mode_tomo, "extract": mode_extract,
+          "gain": mode_gain,
           "refine": mode_refine, "classify2d": mode_classify2d,
           "classify3d": mode_classify3d, "clean": mode_clean,
           "kselection": mode_kselection, "postprocess": mode_postprocess,
@@ -714,7 +774,7 @@ PORTED = {"spr": mode_spr, "extract": mode_extract, "gain": mode_gain,
 
 def main(argv=None, device="cuda"):
     """Entry point: `main([mode, ...], device=...)` for the ported modes
-    (spr, extract, gain, refine, classify2d, classify3d, clean,
+    (spr, tomo, extract, gain, refine, classify2d, classify3d, clean,
     kselection, postprocess, fsc, mask). Returns the exit code; other
     modes are not yet ported and return 2."""
     argv = list(sys.argv[1:] if argv is None else argv)

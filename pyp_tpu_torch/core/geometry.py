@@ -75,6 +75,22 @@ def matrix_to_euler(R):
 # because that module imports jax)
 # ---------------------------------------------------------------------------
 
+def normal_to_euler(nx, ny, nz):
+    """Euler angles (phi, theta, psi) in degrees that carry the reference
+    z-axis onto the given (unit) normal under the projection convention:
+    the reference +z appears at polar angle theta from the beam with
+    azimuth psi; phi spins the reference about its own z first and does
+    not move the axis, so it is returned as 0 (the free in-plane
+    parameter of an axis prior). Components are tensors, arrays or
+    numbers; the angles are float32 tensors on the components' device."""
+    ref = next((a for a in (nx, ny, nz) if isinstance(a, torch.Tensor)),
+               None)
+    nx, ny, nz = (_as_angle(a, ref) for a in (nx, ny, nz))
+    theta = torch.rad2deg(torch.arccos(torch.clamp(nz, -1.0, 1.0)))
+    psi = torch.rad2deg(torch.atan2(ny, nx))
+    return torch.zeros_like(psi), theta, psi
+
+
 def apply_symmetry_matrices(symmetry: str) -> np.ndarray:
     """Rotation matrices of a point group: Cn, Dn, T, O, I (I = 60
     rotations generated by closure)."""

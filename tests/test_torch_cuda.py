@@ -45,6 +45,13 @@ defocus within 0.2 * dfstep, angle within 2°; medians exact; picks the
 same set of coordinates; extracted stacks atol 1e-4 * max; one
 process_micrograph + extract_stack: the same picks, drift within 1e-2 px,
 stacks atol 1e-3 * max.
+
+The tomography slice (13 tilts of 256² from tools/e2e_tomo): prealign
+and patch and bead tracks within 1e-2 px; volumes, aligned and
+CTF-corrected tilts atol 1e-4 * max (SART 1e-3); template scores and
+filters atol 1e-4 * max, peaks the same set, surface radii within 1e-3
+voxel; one process_tilt_series: alignment within 1e-2 px, defocus within
+50 Å, tomogram atol 1e-3 * max, the same picks.
 """
 
 import numpy as np
@@ -674,3 +681,140 @@ def test_classify3d_iteration_cuda_matches_cpu(data):
     assert np.mean(tg["best_2d_class"] == tc["best_2d_class"]) >= 0.9
     for a, b in zip(rg, rc):
         assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# tomography: the same small series on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+TOMO_SMALL = dict(size=256, pixel=8.0, tilt_step=15.0, shift_px=3.0,
+                  n_particles=8, n_beads=6, seed=2)
+
+
+@pytest.fixture(scope="module")
+def tilt_series(tmp_path_factory):
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    d = tmp_path_factory.mktemp("tomo")
+    truth, _ = e2e_tomo.write_series(d, device="cpu", **TOMO_SMALL)
+    return (mrc.read(d / "ts01.mrc").astype(np.float32),
+            np.asarray(truth["angles"], np.float32), truth)
+
+
+def _both(fn):
+    out = {dev: fn(dev) for dev in ("cuda", "cpu")}
+    conv = [tuple(x.cpu().numpy() if isinstance(x, torch.Tensor) else
+                  np.asarray(x) for x in (o if isinstance(o, tuple) else (o,)))
+            for o in (out["cuda"], out["cpu"])]
+    return conv
+
+
+def _close(a, b, rel=1e-4):
+    np.testing.assert_allclose(a, b, rtol=rel,
+                               atol=rel * max(float(np.abs(b).max()), 1e-30))
+
+
+def test_tomo_alignment_cuda_matches_cpu(tilt_series):
+    """prealign and patch tracks within 1e-2 px, the solved model's axis
+    equal."""
+    from pyp_tpu_torch.ops import tomo
+
+    tilts, ang, _ = tilt_series
+    (g,), (c,) = _both(lambda d: tomo.prealign_tilt_series(tilts, ang, device=d))
+    np.testing.assert_allclose(g, c, atol=1e-2)
+    centers = np.array([(y, x) for y in (64.0, 128.0, 192.0)
+                        for x in (64.0, 128.0, 192.0)], np.float32)
+    (tg,), (tc,) = _both(lambda d: tomo.track_patches(
+        tilts, c, ang, centers, patch_size=32, device=d))
+    np.testing.assert_allclose(tg, tc, atol=1e-2)
+    (bg, cg), (bc, cc) = _both(lambda d: tomo.track_beads(
+        tilts, c, ang, centers, 3.0, device=d))
+    np.testing.assert_allclose(bg, bc, atol=1e-2)
+    np.testing.assert_allclose(cg, cc, atol=1e-4)
+
+
+@pytest.mark.parametrize("what", ["wbp", "halves", "sart", "align", "ctf",
+                                  "deconv"])
+def test_tomo_reconstruction_cuda_matches_cpu(what, tilt_series):
+    """Volumes and corrected tilts atol 1e-4 * max (SART 1e-3: ten
+    iterations of sums in another order)."""
+    from pyp_tpu_torch.ops import tomo
+
+    tilts, ang, truth = tilt_series
+    sh = np.asarray(truth["shifts"], np.float32)
+    df = np.asarray(truth["defoci"], np.float32)
+    fn = {
+        "wbp": lambda d: tomo.wbp_reconstruct(tilts, ang, shifts=sh,
+                                              thickness=40, device=d),
+        "halves": lambda d: tomo.wbp_reconstruct_halves(
+            tilts, ang, shifts=sh, thickness=32, device=d),
+        "sart": lambda d: tomo.sart_reconstruct(tilts, ang, shifts=sh,
+                                                thickness=32, iterations=3,
+                                                device=d),
+        "align": lambda d: tomo.align_tilts(tilts, sh, 3.0, device=d),
+        "ctf": lambda d: tomo.ctf_correct_tilts(tilts, ang, df, 8.0,
+                                                device=d),
+        "deconv": lambda d: tomo.ctf_deconvolve(tilts[:8], 35000.0, 8.0,
+                                                device=d),
+    }[what]
+    g, c = _both(fn)
+    for a, b in zip(g, c):
+        _close(a, b, 1e-3 if what == "sart" else 1e-4)
+
+
+def test_tomo_picking_and_filters_cuda_match_cpu(tilt_series):
+    """Template scores, sphere detection, surface refinement, vesselness
+    and the denoisers on one tomogram: maps atol 1e-4 * max, peaks the
+    same set, radii within 1e-3 voxel."""
+    from pyp_tpu_torch.ops import denoise_classic, filament, tomo
+    from pyp_tpu_torch.ops import template_match as tm
+
+    tilts, ang, truth = tilt_series
+    vol = tomo.wbp_reconstruct(tilts, ang, thickness=40, device="cpu").numpy()
+    tpl = vol[10:18, 10:18, 10:18].copy()
+    rots = np.array([[0, 0, 0], [30, 60, 90]], np.float32)
+    g, c = _both(lambda d: tm.match_template_3d(vol, tpl, rots, device=d))
+    _close(g[0], c[0])
+    g, c = _both(lambda d: tm.pick_peaks_3d(torch.as_tensor(vol).to(d), 16, 3))
+    assert ({tuple(x) for x in g[0][g[2]]} == {tuple(x) for x in c[0][c[2]]})
+    g, c = _both(lambda d: tm.detect_spheres(vol, [4.0, 5.0], 4, device=d))
+    np.testing.assert_array_equal(g[0][g[3]], c[0][c[3]])
+    g, c = _both(lambda d: tm.refine_surface_sh(vol, [20, 128, 128], 6.0,
+                                                n_points=60, l_max=3,
+                                                iters=10, device=d))
+    np.testing.assert_allclose(g[2], c[2], atol=1e-3)
+    for fn in (lambda d: filament.vesselness(vol, 1.5, device=d),
+               lambda d: denoise_classic.nlm_denoise_3d(vol, nsearch=5,
+                                                        device=d),
+               lambda d: denoise_classic.nad_denoise_3d(vol, device=d)):
+        g, c = _both(fn)
+        _close(g[0], c[0])
+
+
+def test_process_tilt_series_cuda_matches_cpu(tilt_series, tmp_path):
+    """One series through the whole pipeline on each device: the same
+    alignment (within 1e-2 px), CTF (within 50 Å), tomogram (atol 1e-3 *
+    max) and picks."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.pipeline import tomo as tpipe
+
+    tilts, ang, _ = tilt_series
+    params = schema.defaults()
+    params.update(scope_pixel=8.0, ctf_tile=128, tomo_rec_thickness=160,
+                  tomo_ali_patch_size=32, tomo_spk_method="auto",
+                  tomo_spk_rad=100.0, plot_per_item=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        work = tmp_path / dev
+        work.mkdir()
+        tpipe.process_tilt_series({"name": "ts", "tilts": tilts,
+                                   "angles": ang}, params, work, device=dev)
+        out[dev] = (ItemMetadata("ts", work, mode="tomo").load(),
+                    mrc.read(work / "ts.rec.mrc"))
+    (mg, rg), (mc, rc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(mg["xf"], mc["xf"], atol=1e-2)
+    np.testing.assert_allclose(mg["ctf"][:, :2], mc["ctf"][:, :2], atol=50.0)
+    _close(rg, rc, 1e-3)
+    assert {tuple(r[:3]) for r in mg["box"]} == {tuple(r[:3]) for r in mc["box"]}

@@ -370,11 +370,61 @@ def test_refused_preprocessing_options_raise_by_name(flags, word, tmp_path,
     assert not list(tmp_path.glob("*.meta.npz"))
 
 
-def test_copied_modules_are_byte_identical():
-    """The port's copies of JAX-free modules that it keeps unchanged."""
-    for rel in ("analysis/occupancies.py",):
-        assert ((REPO / "pyp_tpu_torch" / rel).read_bytes()
-                == (REPO / "pyp_tpu" / rel).read_bytes()), rel
+@pytest.mark.parametrize("rel", ["analysis/occupancies.py", "io/mdoc.py",
+                                 "io/imod.py", "io/boxfiles.py"])
+def test_copied_modules_are_byte_identical(rel):
+    """The port's copies of JAX-free modules that it keeps unchanged, but
+    for the package name in their imports."""
+    port = (REPO / "pyp_tpu_torch" / rel).read_text()
+    assert port == (REPO / "pyp_tpu" / rel).read_text().replace(
+        "from pyp_tpu.", "from pyp_tpu_torch."), rel
+
+
+def test_tomography_files_read_the_same(tmp_path):
+    """.mdoc, .xf, IMOD point models and coordinate files: what one
+    package writes, both read the same, and the writers write the same
+    bytes."""
+    from pyp_tpu.io import boxfiles as jbox
+    from pyp_tpu.io import imod as jimod
+    from pyp_tpu.io import mdoc as jmdoc
+    from pyp_tpu_torch.io import boxfiles as tbox
+    from pyp_tpu_torch.io import imod as timod
+    from pyp_tpu_torch.io import mdoc as tmdoc
+
+    rng = np.random.RandomState(5)
+    md = tmp_path / "ts.mrc.mdoc"
+    md.write_text("PixelSpacing = 1.35\n\n" + "".join(
+        f"[ZValue = {z}]\nTiltAngle = {a}\nExposureDose = 3.1\n"
+        f"SubFramePath = X:\\frames\\ts_{z:03d}.tif\n"
+        for z, a in enumerate((0.0, 3.0, -3.0))))
+    a, b = jmdoc.read(md), tmdoc.read(md)
+    assert a == b
+    for f in ("tilt_angles", "exposure_doses", "subframe_paths"):
+        assert getattr(jmdoc, f)(a) == getattr(tmdoc, f)(b)
+    sh, rot = rng.randn(4, 2) * 5, rng.randn(4)
+    jimod.write_xf(tmp_path / "j.xf", sh, rot)
+    timod.write_xf(tmp_path / "t.xf", sh, rot)
+    assert (tmp_path / "j.xf").read_bytes() == (tmp_path / "t.xf").read_bytes()
+    for x, y in zip(jimod.read_xf(tmp_path / "t.xf"),
+                    timod.read_xf(tmp_path / "j.xf")):
+        np.testing.assert_array_equal(x, y)
+    pts = rng.uniform(0, 60, (5, 3)).astype(np.float32)
+    jimod.write_point_model(tmp_path / "j.mod", pts)
+    timod.write_point_model(tmp_path / "t.mod", pts)
+    assert (tmp_path / "j.mod").read_bytes() == (tmp_path / "t.mod").read_bytes()
+    jbox.write_spk(pts, tmp_path / "j.spk")
+    tbox.write_spk(pts, tmp_path / "t.spk")
+    assert (tmp_path / "j.spk").read_bytes() == (tmp_path / "t.spk").read_bytes()
+    np.testing.assert_array_equal(
+        np.asarray(tbox.read_coords(str(tmp_path / "j.spk"))),
+        np.asarray(jbox.read_coords(str(tmp_path / "j.spk"))))
+    np.testing.assert_array_equal(timod.read_points(tmp_path / "j.mod"),
+                                  jimod.read_points(tmp_path / "t.mod"))
+    # a known defect of both copies: read_coords hands read_model's
+    # (contours, header) pair to np.asarray, so a .mod import raises
+    for mod in (jbox, tbox):
+        with pytest.raises(ValueError):
+            mod.read_coords(str(tmp_path / "j.mod"))
 
 
 ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
@@ -388,7 +438,18 @@ ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "cli_extract", "cli_gain", "ab_initio", "ab_initio_frm",
                 "mean_particle_score", "classify2d", "classify2d_staged",
                 "classify3d_loop", "classify3d_iteration", "align_volumes",
-                "cli_refine_abinit", "cli_classify2d", "cli_classify3d"]
+                "cli_refine_abinit", "cli_classify2d", "cli_classify3d",
+                "process_tilt_series", "assemble_tilt_series",
+                "prealign_tilt_series", "track_patches", "track_beads",
+                "align_tilt_series_fiducial", "wbp_reconstruct",
+                "wbp_reconstruct_halves", "sart_reconstruct", "align_tilts",
+                "ctf_correct_tilts", "detect_handedness", "ctf_deconvolve",
+                "nlm_denoise_3d", "nad_denoise_3d", "denoise_map",
+                "vesselness", "sheetness", "segment_membranes",
+                "pick_filaments", "match_template_3d", "detect_spheres",
+                "detect_spheres_template", "match_on_surface",
+                "refine_virion_surface", "refine_surface_sh",
+                "pick_particles_3d", "cli_tomo"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -397,9 +458,11 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     resolve_device where there is no card: none carries on on the CPU."""
     from pyp_tpu_torch.analysis import modelfit
     from pyp_tpu_torch.io.metadata import ItemMetadata
-    from pyp_tpu_torch.ops import (ab_initio, ctf_fit, extract, frm, motion,
-                                   pick, reconstruct, refine2d, refine3d,
-                                   template_match)
+    from pyp_tpu_torch.ops import (ab_initio, ctf_fit, denoise_classic,
+                                   extract, filament, frm, motion, pick,
+                                   reconstruct, refine2d, refine3d,
+                                   template_match, tomo)
+    from pyp_tpu_torch.pipeline import tomo as ttomo
     from pyp_tpu_torch.pipeline import classify3d
     from pyp_tpu_torch.pipeline import refine as tref
     from pyp_tpu_torch.pipeline import spr as tspr
@@ -420,6 +483,7 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     done["average"], done["box"] = stack[0], np.zeros((1, 3))
     done.save()
     coords = np.array([[8, 8]])
+    ang, sh = [-30.0, 30.0], np.zeros((2, 2), np.float32)
     tmrc.write(stack, "stack.mrc")
     tcistem.write_parameters(table, "stack.cistem")
     calls = {
@@ -470,6 +534,46 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
         "model_map_fit": lambda: modelfit.model_map_fit(
             {"coords": np.zeros((1, 3)), "weights": np.ones(1),
              "bfactors": np.zeros(1)}, vol, 2.0),
+        "process_tilt_series": lambda: ttomo.process_tilt_series(
+            {"name": "ts", "tilts": stack, "angles": [-30.0, 30.0]}, params),
+        "assemble_tilt_series": lambda: ttomo.assemble_tilt_series(
+            "absent.mdoc", params),
+        "prealign_tilt_series": lambda: tomo.prealign_tilt_series(stack, ang),
+        "track_patches": lambda: tomo.track_patches(stack, sh, ang, coords, 8),
+        "track_beads": lambda: tomo.track_beads(stack, sh, ang, coords),
+        "align_tilt_series_fiducial": lambda: tomo.align_tilt_series_fiducial(
+            stack, ang),
+        "wbp_reconstruct": lambda: tomo.wbp_reconstruct(stack, ang),
+        "wbp_reconstruct_halves": lambda: tomo.wbp_reconstruct_halves(
+            stack, ang),
+        "sart_reconstruct": lambda: tomo.sart_reconstruct(stack, ang),
+        "align_tilts": lambda: tomo.align_tilts(stack, sh, 3.0),
+        "ctf_correct_tilts": lambda: tomo.ctf_correct_tilts(
+            stack, ang, [2e4, 2e4], 2.0),
+        "detect_handedness": lambda: tomo.detect_handedness(
+            stack, ang, [2e4, 2e4], 2.0, min_tilt=0.0),
+        "ctf_deconvolve": lambda: tomo.ctf_deconvolve(vol, 2e4, 2.0),
+        "nlm_denoise_3d": lambda: denoise_classic.nlm_denoise_3d(vol),
+        "nad_denoise_3d": lambda: denoise_classic.nad_denoise_3d(vol),
+        "denoise_map": lambda: denoise_classic.denoise_map(vol),
+        "vesselness": lambda: filament.vesselness(vol, 1.0),
+        "sheetness": lambda: filament.sheetness(vol, 1.0),
+        "segment_membranes": lambda: filament.segment_membranes(vol),
+        "pick_filaments": lambda: filament.pick_filaments(vol, 2.0, 4.0),
+        "match_template_3d": lambda: template_match.match_template_3d(
+            vol, vol[:4, :4, :4], np.zeros((1, 3))),
+        "detect_spheres": lambda: template_match.detect_spheres(vol, [3.0]),
+        "detect_spheres_template": lambda:
+            template_match.detect_spheres_template(vol, [3.0]),
+        "match_on_surface": lambda: template_match.match_on_surface(
+            vol, vol[:4, :4, :4], np.full((1, 3), 8.0), np.eye(3)[:1]),
+        "refine_virion_surface": lambda: template_match.refine_virion_surface(
+            vol, [8, 8, 8], 4.0),
+        "refine_surface_sh": lambda: template_match.refine_surface_sh(
+            vol, [8, 8, 8], 4.0),
+        "pick_particles_3d": lambda: ttomo.pick_particles_3d(
+            vol, {**params, "tomo_spk_method": "auto"}, 8.0),
+        "cli_tomo": lambda: tcli.main(["tomo", "-data_path", "m.mrc"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -4,7 +4,8 @@ version at the shapes the main paths give it, then drives the SPA
 refinement loop through `pyp_tpu_torch.cli.main` on a synthetic
 4,096-particle, box-128 dataset, once per engine, the preprocessing
 path (movies to a particle stack) on three synthetic 40 x 4096² movies,
-and the tomography path on a synthetic 41-tilt series, and checks each
+the tomography path on a synthetic 41-tilt series, and the subtomogram
+path (CSP, SVA) and particle polishing on top of those, and checks each
 result against the ground truth:
 
   slice      the gather engine (the path of the shift_scored_match kernel);
@@ -84,7 +85,36 @@ filament and a membrane sheet with known geometry):
   tomo_thick  `tomo` on the same field with its content spread through
              the thickness: mean defocus within 2%; the alignment,
              tomogram cc and recall read without bars (the known limit
-             of patch tracking).
+             of patch tracking);
+
+and the subtomogram phases:
+
+  csp_layers  the CSP refinement alone at the reference bench's shape (8
+             series x 41 tilts x 128 particles, box 64 at 2 Å/px, the
+             60-8 Å band, modes 3:0:2:1 x 20 steps) on windows of noise,
+             plain and with the grid search, series sequential and
+             vectorized: projections/s, peak memory, a step's split, and
+             accumulate_matrices of the 41,984 rows (no quality bar);
+  csp_tomo   `tools/e2e_tomo.CSP_SERIES` (the tomo field with a particle
+             whose projections change with its orientation) through `tomo`,
+             picked by template matching with the particle map;
+  csp        `csp` on copies of that project, started from `tools/e2e_csp`
+             (the port's picks matched to the planted particles, their
+             rotations turned by 8°, the negated particle map at box 256):
+             the reference's sign above the other; the default schedule
+             with the median orientation error below the start's, the
+             per-tilt shift error no worse than the bundle's, the
+             average's cc with the reference > 0.5 and a resumed call
+             under a tenth; `-csp_GridSearch` from 16° below 16°; three
+             renamed copies refined together, each within 1e-2 (°, px) of
+             the single run;
+  sva        `sva` on the csp_tomo project's tomogram and its 3D picks,
+             one per planted particle (reference-free, -sva_ref,
+             -sva_classes 2): each average's cc with the particle map
+             after align_volumes > 0.5;
+  polish     (after spr_refine) `polish` on the three movies at the FRM
+             run's poses and map, then the FRM protocol on the polished
+             stack: FSC(0.143) within a shell of the unpolished run's.
 
     python3 chip_smoke.py
 
@@ -1190,13 +1220,14 @@ def phase_extract(project, truth):
         raise RuntimeError("the table's defocus columns differ from the fits")
 
 
-def phase_spr_refine(project, volume):
+def phase_spr_refine(project, volume, root):
     """The extracted stack and table with a 20 Å low-pass of the truth as
     the starting map through the FRM protocol: movies to a map. Run twice:
     on the stack as `extract` writes it (contrast inverted, the mode's
     default) and on its negative, the micrograph's own contrast, which is
     what the refinement's CTF model (-sin chi) describes. Reported, not
-    held to a bar (a few hundred particles)."""
+    held to a bar (a few hundred particles). Returns the second run's
+    directory (under `root`) and its final FSC(0.143)."""
     import shutil
 
     from pyp_tpu_torch.io import mrc
@@ -1208,21 +1239,22 @@ def phase_spr_refine(project, volume):
     stack = mrc.read(os.path.join(project, "stack.mrc"))
     cwd = os.getcwd()
     for contrast, sign in (("as_extracted", 1.0), ("micrograph", -1.0)):
-        with tempfile.TemporaryDirectory() as work:
-            shutil.copy(os.path.join(project, "stack.cistem"), work)
-            mrc.write(sign * stack, os.path.join(work, "stack.mrc"),
-                      pixel_size=SLICE["pixel"])
-            mrc.write(init, os.path.join(work, "initial_model.mrc"),
-                      pixel_size=SLICE["pixel"])
-            os.chdir(work)
-            try:
-                iters, wall = _sync_s(
-                    lambda: profile_refine.drive(FRM_ARGS, "cuda"))
-            finally:
-                os.chdir(cwd)
-            last = max(iters)
-            final = mrc.read(os.path.join(work, "maps",
-                                          f"dataset_r01_{last:02d}.mrc"))
+        work = os.path.join(root, f"refine_{contrast}")
+        os.makedirs(work)
+        shutil.copy(os.path.join(project, "stack.cistem"), work)
+        mrc.write(sign * stack, os.path.join(work, "stack.mrc"),
+                  pixel_size=SLICE["pixel"])
+        mrc.write(init, os.path.join(work, "initial_model.mrc"),
+                  pixel_size=SLICE["pixel"])
+        os.chdir(work)
+        try:
+            iters, wall = _sync_s(
+                lambda: profile_refine.drive(FRM_ARGS, "cuda"))
+        finally:
+            os.chdir(cwd)
+        last = max(iters)
+        final = mrc.read(os.path.join(work, "maps",
+                                      f"dataset_r01_{last:02d}.mrc"))
         emit({"phase": "spr_refine", "contrast": contrast, "seconds": wall,
               "particles": int(len(stack)), "iterations": sorted(iters),
               "final_fsc143_A": iters[last]["fsc143_A"],
@@ -1231,10 +1263,12 @@ def phase_spr_refine(project, volume):
         if final.shape != (SLICE["box"],) * 3 or not np.isfinite(final).all():
             raise RuntimeError(f"spr_refine's final map has shape "
                                f"{final.shape} or non-finite values")
+    return work, iters[last]["fsc143_A"]
 
 
 def phase_preprocess(volume):
-    """The preprocessing phases on one movie set in a temporary directory."""
+    """The preprocessing phases on one movie set in a temporary directory,
+    then polishing. Returns the kernel launches of the `polish` run."""
     with tempfile.TemporaryDirectory() as root:
         movies_dir = os.path.join(root, "movies")
         project = os.path.join(root, "project")
@@ -1242,7 +1276,8 @@ def phase_preprocess(volume):
         phase_spr(movies_dir, project, truth)
         phase_spr_layers(movies_dir)
         phase_extract(project, truth)
-        phase_spr_refine(project, volume)
+        refined, fsc = phase_spr_refine(project, volume, root)
+        return phase_polish(project, refined, movies_dir, fsc, volume)
 
 # ---------------------------------------------------------------------------
 # tomography: tools/e2e_tomo's series through cli.main(["tomo", ...])
@@ -1735,9 +1770,493 @@ def phase_tomo_thick(root):
         raise RuntimeError("tomo_thick: non-finite tomogram")
 
 
+# ---------------------------------------------------------------------------
+# subtomogram averaging: CSP (tools/e2e_csp on the tomo phase's bundle), the
+# legacy SVA on its tomogram, and particle polishing on the SPA movies
+# ---------------------------------------------------------------------------
+
+# the reference bench's CSP shape (bench.py:203-275): 8 series x 41 tilts x
+# 128 particles, box 64 at 2 Å/px, the 60-8 Å band, modes 3:0:2:1, 20 steps
+CSP_LAYERS = dict(S=8, T=41, P=128, box=64, pixel=2.0, band=(60.0, 8.0),
+                  modes=(3, 0, 2, 1), iters=20)
+CSP_LAYERS_GRID = {3: 10.0, 0: (2.0, 0.0), 2: 10.0, 1: (10.0, 10.0, 10.0)}
+CSP_SIGN_MARGIN = 0.0          # the reference's sign scores above the other
+CSP_CC_BAR = 0.5               # the average vs the reference, <= 60 Å
+CSP_BATCH_TOL = 1e-2           # a renamed copy vs the single run (°, px)
+CSP_BATCH_COPIES = 3
+
+
+class _LogLines:
+    """Collects the messages of one logger that contain `word`."""
+
+    def __init__(self, logger_name, word):
+        import logging
+
+        outer = self
+        self.lines = []
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if word in msg:
+                    outer.lines.append(msg)
+
+        self.handler = Handler()
+        self.logger = logging.getLogger(logger_name)
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
+
+
+def phase_csp_layers():
+    """The CSP refinement alone at the reference bench's shape on windows of
+    noise (no quality bar): the mode schedule plain and with the grid
+    search, each with the series one after another and vectorized;
+    projections per second (S*T*P / wall), peak memory, one step's split
+    into the reference gather, the NCC and the autograd backward; and
+    accumulate_matrices of all S*T*P rows."""
+    import torch
+
+    from pyp_tpu_torch.ops import csp, kernels
+    from pyp_tpu_torch.ops import reconstruct as rec
+    from pyp_tpu_torch.ops.fourier_slice import volume_to_fourier
+    from pyp_tpu_torch.ops.refine3d import make_mask_points
+
+    c = CSP_LAYERS
+    S, T, P, n, pixel = c["S"], c["T"], c["P"], c["box"], c["pixel"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.RandomState(0)
+    mask = torch.as_tensor(make_mask_points(n, pixel, *c["band"]), device=dev)
+    G = int(mask.shape[0])
+    xv = torch.complex(torch.randn((S, T, P, G), generator=gen, device=dev),
+                       torch.randn((S, T, P, G), generator=gen, device=dev))
+    Fref = volume_to_fourier(torch.randn((n, n, n), generator=gen, device=dev))
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    params = csp.CspParams(
+        f32(np.tile(np.linspace(-60, 60, T), (S, 1))), f32(np.zeros((S, T))),
+        f32(np.zeros((S, T, 2))), f32(rng.uniform(0, 360, (S, P, 3))),
+        f32(np.concatenate([rng.uniform(-100, 100, (S, P, 1)),
+                            rng.uniform(-800, 800, (S, P, 2))], -1)),
+        f32(np.zeros((S, T))))
+    wc = torch.round(csp.project_positions(params))
+    df = torch.full((S, T, 2), 20000.0, device=dev)
+    tw = torch.ones((S, T), device=dev)
+    valid = torch.ones((S, T, P), device=dev)
+    args = (params, xv, wc, df, mask, Fref, tw, valid)
+    kernels.shift_scored_match.launches = 0
+    row = {"phase": "csp_layers", "S": S, "T": T, "P": P, "box": n, "G": G,
+           "modes": list(c["modes"]), "iters_per_mode": c["iters"]}
+    for label, tols in (("plain", None), ("grid", CSP_LAYERS_GRID)):
+        offs, spin = csp.build_mode_offsets(c["modes"], tols, 9)
+        if tols:
+            row["grid_candidates"] = {str(m): int(len(o)) for m, o in
+                                      zip(c["modes"], offs) if o is not None}
+        for vmap in (False, True):
+            key = f"{label}_{'vectorized' if vmap else 'sequential'}"
+            torch.cuda.reset_peak_memory_stats()
+            out, wall = _sync_s(lambda: csp.csp_refine_batch(
+                *args, offs, spin, c["modes"], n, pixel,
+                iters_per_mode=c["iters"], series_vmap=vmap))
+            if not all(torch.isfinite(x).all() for x in out[0]):
+                raise RuntimeError(f"csp_layers {key}: non-finite parameters")
+            row[f"{key}_s"] = wall
+            row[f"{key}_projections_per_s"] = S * T * P / wall
+            row[f"{key}_max_memory_allocated_GiB"] = (
+                torch.cuda.max_memory_allocated() / 2**30)
+    # one gradient step of mode 1 (eulers) on the vectorized batch, split
+    with torch.no_grad():
+        c0 = csp._csp_ctf(params, df, mask, n, pixel, 300.0, 2.7, 0.07)
+        u0 = csp._csp_model_gather(params, mask, Fref, n)
+    row["gather_ms"] = _median_ms(
+        lambda: csp._csp_model_gather(params, mask, Fref, n), reps=5)
+    row["ncc_ms"] = _median_ms(lambda: csp._csp_ncc(
+        params, xv, wc, df, mask, Fref, n, pixel, 300.0, 2.7, 0.07,
+        u=u0, c=c0), reps=5)
+
+    def step():
+        e = params.particle_eulers.detach().requires_grad_(True)
+        with torch.enable_grad():
+            s = csp.csp_score(params._replace(particle_eulers=e), xv, wc, df,
+                              mask, Fref, tw, valid, n, pixel,
+                              xv_precomputed=True, c=c0)
+            torch.autograd.grad(s.sum(), [e])
+
+    row["step_ms"] = _median_ms(step, reps=5)
+    row["autograd_ms"] = row["step_ms"] - row["gather_ms"] - row["ncc_ms"]
+    # the reconstruction of every (series, tilt, particle) row
+    R = csp.effective_rotations(params).reshape(-1, 3, 3)
+    B = R.shape[0]
+    wins = torch.randn((B, n, n), generator=gen, device=dev)
+    zeros2 = torch.zeros((B, 2), device=dev)
+    dfb = torch.full((B,), 20000.0, device=dev)
+    sub = torch.arange(B, device=dev) % 2
+    ones = torch.ones(B, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    row["accumulate_rows"] = B
+    row["accumulate_matrices_ms"] = _median_ms(
+        lambda: rec.accumulate_matrices(wins, R, zeros2, dfb, sub, ones, n,
+                                        pixel), reps=3)
+    row["accumulate_max_memory_allocated_GiB"] = (
+        torch.cuda.max_memory_allocated() / 2**30)
+    row["launches"] = kernels.shift_scored_match.launches
+    emit(row)
+    if row["launches"]:
+        raise RuntimeError("csp_layers launched shift_scored_match")
+    return row["launches"]
+
+
+def _matched_picks(base, truth, thickness):
+    """The tomo project's picks as the csp mode centres them (unbinned
+    px), and one per planted particle (tools/e2e_csp.matched_picks):
+    (all picks, kept pick indices, their planted indices)."""
+    from pyp_tpu_torch.tools import e2e_csp
+
+    meta = _tomo_meta(base)
+    picks = e2e_csp.pick_positions(meta["box"], meta.scalars["binning"],
+                                   thickness, truth["size"])
+    keep, idx = e2e_csp.matched_picks(picks, truth, truth["pixel"])
+    return picks, keep, idx
+
+
+def _csp_project(base, root, name, truth, eulers, box, ref, pixel, keep,
+                 copies=()):
+    """A copy of the tomo project for one CSP run: its bundle's picks cut
+    to `keep` (tools/e2e_csp.matched_picks), the reference map, the start
+    table, and for `copies` the bundle renamed."""
+    import shutil
+
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.tools import e2e_csp
+
+    proj = os.path.join(root, name)
+    shutil.copytree(base, proj, ignore=shutil.ignore_patterns("*.rec.mrc",
+                                                              "*.png"))
+    meta = ItemMetadata("ts01", proj, mode="tomo").load()
+    meta["box"] = meta["box"][keep]
+    meta.save()
+    mrc.write(ref.astype(np.float32), os.path.join(proj, "initial_model.mrc"),
+              pixel_size=pixel)
+    os.makedirs(os.path.join(proj, "start"))
+    for series in ("ts01",) + tuple(copies):
+        e2e_csp.write_start(os.path.join(proj, "start", f"{series}.cistem"),
+                            eulers)
+        if series != "ts01":
+            for ext in (".meta.npz", ".meta.json"):
+                shutil.copy(os.path.join(proj, "ts01" + ext),
+                            os.path.join(proj, series + ext))
+    return proj
+
+
+def _csp_read(proj, series, truth, rotations, sign, pixel):
+    """The run's readings for one series: orientation errors from the
+    ArtiaX star's angles, per-tilt shift errors from the refined xf."""
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.tools import e2e_csp, e2e_tomo
+
+    rows = [ln.split("\t") for ln in open(os.path.join(
+        proj, "artiax", f"{series}_K1.star")).read().splitlines()
+            if ln.startswith(series + "\t")]
+    eulers = np.array([[float(v) for v in r[4:7]] for r in rows])
+    meta = ItemMetadata(series, proj, mode="tomo").load()
+    return dict(
+        eulers=eulers,
+        orientation_err=e2e_csp.orientation_errors_deg(eulers, rotations),
+        shift_err=e2e_tomo.shift_errors_px(meta["xf"], truth, pixel, sign),
+        xf=meta["xf"], scores=meta["csp_scores"])
+
+
+def phase_csp(data_dir, root, tt, base, box=None, band=None,
+              thickness=2048, extra=()):
+    """`csp` through cli.main on copies of the tomo phase's project (41 x
+    4096² at 1 Å/px, the port's own picks), started from tools/e2e_csp:
+    the reference's sign against the other; the default schedule from
+    START_ERROR_DEG, then resumed; -csp_GridSearch from
+    GRID_START_ERROR_DEG; and a batch of renamed copies of the series,
+    each held to the single run. Bars, each predicted in PERF.md first:
+    orientation error below the start's, per-tilt shift error no worse
+    than the bundle's, the average's cc with the reference above
+    CSP_CC_BAR, the resumed call under RESUME_BAR of the first. Returns
+    the kernel launches of the runs."""
+    import torch
+
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.ops import csp, kernels
+    from pyp_tpu_torch.pipeline import csp as csp_pipe
+    from pyp_tpu_torch.tools import e2e_csp, e2e_tomo
+
+    truth = tt.truth
+    pixel, size = truth["pixel"], truth["size"]
+    box = box or e2e_csp.CSP_BOX
+    band = band or e2e_csp.CSP_BAND
+    meta0 = _tomo_meta(base)
+    sign = float(meta0.scalars["xf_shift_sign"])
+    all_picks, keep, idx = _matched_picks(base, truth, thickness)
+    picks = all_picks[keep]
+    rotations = e2e_csp.planted_rotations(truth)[idx]
+    ref = e2e_csp.reference(truth, box, pixel)
+    start = e2e_csp.start_eulers(rotations, e2e_csp.START_ERROR_DEG, seed=1)
+    failures = []
+    row = {"phase": "csp", "box": box, "band_A": list(band),
+           "picks_all": int(len(all_picks)), "picks": int(len(picks)),
+           "pick_offset_in_tilts_median_px": float(np.median(
+               e2e_csp.projected_offsets(picks, meta0["xf"], meta0["tlt"],
+                                         sign, truth, size))),
+           "shift_err_bundle_median_px": float(np.median(
+               e2e_tomo.shift_errors_px(meta0["xf"], truth, pixel, sign))),
+           "start_error_deg": e2e_csp.START_ERROR_DEG}
+
+    # the reference's sign: the start's score against the negated map's
+    tilts = torch.as_tensor(mrc.read(os.path.join(data_dir, "ts01.mrc")),
+                            device="cuda").float()
+    cp = csp_pipe.series_params_from_metadata(meta0, picks, start)
+    for key, r in (("score_reference", ref), ("score_negated", -ref)):
+        row[key] = csp.csp_refine(cp, tilts, meta0["ctf"][:, :2], r, pixel,
+                                  box, modes=(3,), iters_per_mode=0,
+                                  low_res=band[0], high_res=band[1],
+                                  reg_weight=0.0)[1][0]
+    del tilts
+    if not row["score_reference"] > row["score_negated"] + CSP_SIGN_MARGIN:
+        failures.append("the negated reference scores higher")
+
+    argv = ["csp", "-scope_pixel", str(pixel), "-scope_voltage", "300",
+            "-scope_cs", "2.7", "-scope_wgh", "0.07", "-csp_box", str(box),
+            "-csp_rlref", str(band[0]), "-csp_rhref", str(band[1]),
+            "-csp_transreg", "0", "-tomo_rec_thickness", str(thickness),
+            "-csp_parfile", "start", "-no_plot_per_item"] + list(extra)
+    one = ["-data_path", os.path.join(data_dir, "ts01.mrc")]
+    kernels.shift_scored_match.launches = 0
+
+    # the default schedule (3:0:2:1, 20 steps a mode), then resumed
+    proj = _csp_project(base, root, "csp", truth, start, box, ref, pixel,
+                        keep)
+    torch.cuda.reset_peak_memory_stats()
+    with _StageTimes() as stages:
+        summary, wall = _cli_json(argv + one, proj)
+    res = _csp_read(proj, "ts01", truth, rotations, sign, pixel)
+    avg = mrc.read(os.path.join(proj, "maps", "dataset_csp_02.mrc"))
+    row.update(
+        seconds=wall, stages_s=dict(stages.rows),
+        max_memory_allocated_GiB=torch.cuda.max_memory_allocated() / 2**30,
+        fsc143_A=summary["resolution"],
+        orientation_err_median_deg=float(np.median(res["orientation_err"])),
+        shift_err_median_px=float(np.median(res["shift_err"])),
+        average_cc=e2e_csp.map_cc(avg, ref, pixel, band[1]),
+        average_cc_negated=e2e_csp.map_cc(avg, -ref, pixel, band[1]),
+        score_mean=float(np.mean(res["scores"])))
+    if not row["orientation_err_median_deg"] < e2e_csp.START_ERROR_DEG:
+        failures.append(f"csp: orientation error "
+                        f"{row['orientation_err_median_deg']:.3f}°")
+    if not row["shift_err_median_px"] <= row["shift_err_bundle_median_px"]:
+        failures.append(f"csp: shift error {row['shift_err_median_px']:.3f} "
+                        f"px above the bundle's")
+    if not (row["average_cc"] > CSP_CC_BAR and np.isfinite(avg).all()):
+        failures.append(f"csp: average cc {row['average_cc']:.4f}")
+    with _StageTimes() as again:
+        summary2, wall2 = _cli_json(argv + one + ["-csp_resume"], proj)
+    row.update(resume_seconds=wall2, resume_stages_run=len(again.rows))
+    if not (summary2.get("resumed") and wall2 < RESUME_BAR * wall):
+        failures.append(f"csp: the resumed call took {wall2:.2f} s of "
+                        f"{wall:.2f} s ({summary2})")
+
+    # the grid search from a wider start
+    start_g = e2e_csp.start_eulers(rotations, e2e_csp.GRID_START_ERROR_DEG,
+                                   seed=2)
+    proj_g = _csp_project(base, root, "csp_grid", truth, start_g, box, ref,
+                          pixel, keep)
+    summary_g, wall_g = _cli_json(argv + one + [
+        "-csp_GridSearch", "-csp_ToleranceMicrographTiltAngles", "2",
+        "-csp_ToleranceMicrographShifts", "10",
+        "-csp_ToleranceParticlesShifts", "10"], proj_g)
+    res_g = _csp_read(proj_g, "ts01", truth, rotations, sign, pixel)
+    row.update(grid_seconds=wall_g, grid_fsc143_A=summary_g["resolution"],
+               grid_start_error_deg=e2e_csp.GRID_START_ERROR_DEG,
+               grid_orientation_err_median_deg=float(
+                   np.median(res_g["orientation_err"])),
+               grid_shift_err_median_px=float(np.median(res_g["shift_err"])))
+    if not (row["grid_orientation_err_median_deg"]
+            < e2e_csp.GRID_START_ERROR_DEG):
+        failures.append(f"csp_grid: orientation error "
+                        f"{row['grid_orientation_err_median_deg']:.3f}°")
+
+    # renamed copies refined together (csp_swarm_batch, vectorized)
+    names = [f"ts{k:02d}" for k in range(2, 2 + CSP_BATCH_COPIES)]
+    proj_b = _csp_project(base, root, "csp_batch", truth, start, box, ref,
+                          pixel, keep, copies=names)
+    series_dir = os.path.join(proj_b, "series")
+    os.makedirs(series_dir)
+    for series in ["ts01"] + names:
+        os.symlink(os.path.join(data_dir, "ts01.mrc"),
+                   os.path.join(series_dir, f"{series}.mrc"))
+    torch.cuda.reset_peak_memory_stats()
+    summary_b, wall_b = _cli_json(argv + [
+        "-data_path", os.path.join(series_dir, "ts*.mrc")], proj_b)
+    diffs = []
+    for series in ["ts01"] + names:
+        rb = _csp_read(proj_b, series, truth, rotations, sign, pixel)
+        diffs.append(max(float(np.abs(rb["eulers"] - res["eulers"]).max()),
+                         float(np.abs(rb["xf"] - res["xf"]).max())))
+    row.update(batch_series=1 + len(names), batch_seconds=wall_b,
+               batch_max_memory_allocated_GiB=(
+                   torch.cuda.max_memory_allocated() / 2**30),
+               batch_fsc143_A=summary_b["resolution"],
+               batch_max_diff_to_single=max(diffs),
+               launches=kernels.shift_scored_match.launches)
+    if not max(diffs) <= CSP_BATCH_TOL:
+        failures.append(f"csp_batch: a copy differs by {max(diffs):.4g}")
+    emit(row)
+    if row["launches"]:
+        failures.append("csp launched shift_scored_match")
+    if failures:
+        raise RuntimeError("csp bars failed: " + "; ".join(failures))
+    return row["launches"]
+
+
+SVA_BOX = 48
+SVA_CC_BAR = 0.5               # the average vs the particle map, aligned
+
+
+def phase_sva(root, tt, base, box=SVA_BOX, rec_pixel=TOMO_REC_PIXEL,
+              thickness=2048):
+    """`sva` through cli.main on copies of the csp_tomo project (the
+    rec-bin-8 tomogram and its 3D picks, cut to one per planted particle
+    as for csp): reference-free, with -sva_ref (the particle map at the
+    rec pixel; the tomogram shows the particles bright, so the map is not
+    negated), and with -sva_classes 2. Bar: each average's cc with the
+    particle map after align_volumes above SVA_CC_BAR. Returns the kernel
+    launches."""
+    import shutil
+
+    import torch
+
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.ops.template_match import align_volumes
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    truth_map = e2e_tomo.particle_map(tt.truth, box, rec_pixel).cpu().numpy()
+    _, keep, _ = _matched_picks(base, tt.truth, thickness)
+    kernels.shift_scored_match.launches = 0
+    row = {"phase": "sva", "box": box, "rec_pixel_A": rec_pixel}
+    failures = []
+    for label, extra in (("free", []), ("ref", ["-sva_ref", "ref.mrc"]),
+                         ("classes", ["-sva_classes", "2"])):
+        proj = os.path.join(root, f"sva_{label}")
+        shutil.copytree(base, proj, ignore=shutil.ignore_patterns("*.png"))
+        meta = ItemMetadata("ts01", proj, mode="tomo").load()
+        meta["box"] = meta["box"][keep]
+        meta.save()
+        mrc.write(truth_map, os.path.join(proj, "ref.mrc"),
+                  pixel_size=rec_pixel)
+        torch.cuda.reset_peak_memory_stats()
+        with _StageTimes() as stages:
+            out, wall = _cli_json(["sva", "-scope_pixel", str(tt.truth["pixel"]),
+                                   "-sva_box", str(box)] + extra, proj)
+        avg = mrc.read(os.path.join(proj, "dataset_sva.mrc"))
+        cc = float(align_volumes(avg, truth_map, device="cuda")[0])
+        row.update({f"{label}_seconds": wall,
+                    f"{label}_stages_s": dict(stages.rows),
+                    f"{label}_max_memory_allocated_GiB":
+                        torch.cuda.max_memory_allocated() / 2**30,
+                    f"{label}_subvolumes": out["subvolumes"],
+                    f"{label}_mean_score": out["mean_score"],
+                    f"{label}_aligned_cc": cc})
+        if label == "classes":
+            row["classes"] = out["classes"]
+        if not (cc > SVA_CC_BAR and np.isfinite(avg).all()):
+            failures.append(f"sva {label}: aligned cc {cc:.4f}")
+    row["launches"] = kernels.shift_scored_match.launches
+    emit(row)
+    if row["launches"]:
+        failures.append("sva launched shift_scored_match")
+    if failures:
+        raise RuntimeError("sva bars failed: " + "; ".join(failures))
+    return row["launches"]
+
+
+def phase_polish(project, refined, movies_dir, fsc_unpolished, volume):
+    """`polish` through cli.main on the spr_refine run that refines (the
+    micrograph's contrast, -no_extract_inv so the polished stack keeps it):
+    the three movies' particles re-extracted from their 40 frames along the
+    bundles' drift, trajectories refined against the FRM map; then the FRM
+    protocol again on the polished stack. Reports seconds per micrograph
+    and the trajectory RMS (the movies carry only the global drift, so near
+    0). Bar: the polished stack's FSC(0.143) within one shell of the
+    unpolished one's. Returns the kernel launches of the polish call."""
+    import glob
+    import shutil
+
+    import torch
+
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.tools import e2e_spa, e2e_spr, profile_refine
+    from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS, SLICE
+
+    work = os.path.join(os.path.dirname(refined), "polish")
+    shutil.copytree(refined, work)
+    for path in glob.glob(os.path.join(project, "*.meta.*")):
+        shutil.copy(path, work)
+    maps = sorted(glob.glob(os.path.join(work, "maps", "dataset_r01_??.cistem")))
+    shutil.copy(maps[-1], os.path.join(work, "stack.cistem"))
+    kernels.shift_scored_match.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _StageTimes() as stages, _LogLines("pyp_tpu_torch.cli",
+                                            "trajectory RMS") as rms:
+        out, wall = _cli_json(
+            ["polish", "-data_path", os.path.join(movies_dir, "*.mrc"),
+             "-scope_pixel", str(SLICE["pixel"]), "-extract_box",
+             str(SLICE["box"]), "-no_extract_inv", "-no_plot_per_item"], work)
+    launches = kernels.shift_scored_match.launches
+    per_movie = [s for name, s in stages.rows if name.startswith("polish ")]
+    traj_rms = [float(ln.rsplit(" ", 2)[-2]) for ln in rms.lines]
+    row = {"phase": "polish", "seconds": wall, "polished": out["polished"],
+           "seconds_per_micrograph": per_movie,
+           "max_memory_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30,
+           "trajectory_rms_px": traj_rms, "launches": launches}
+    # the FRM protocol again, from the same start, on the polished stack
+    truth = e2e_spr.with_envelope(volume, e2e_spr.MOVIES["envelope"])
+    init = e2e_spa.starting_map(truth, SLICE["pixel"], e2e_spa.START_RESOLUTION)
+    refine_dir = os.path.join(os.path.dirname(refined), "polish_refine")
+    os.makedirs(refine_dir)
+    shutil.copy(os.path.join(project, "stack.cistem"), refine_dir)
+    shutil.copy(os.path.join(work, "stack.mrc"), refine_dir)
+    mrc.write(init, os.path.join(refine_dir, "initial_model.mrc"),
+              pixel_size=SLICE["pixel"])
+    cwd = os.getcwd()
+    os.chdir(refine_dir)
+    try:
+        iters, wall_r = _sync_s(lambda: profile_refine.drive(FRM_ARGS, "cuda"))
+    finally:
+        os.chdir(cwd)
+    fsc = iters[max(iters)]["fsc143_A"]
+    shell = fsc_unpolished ** 2 / (SLICE["box"] * SLICE["pixel"])
+    row.update(refine_seconds=wall_r, fsc143_A=fsc,
+               fsc143_unpolished_A=fsc_unpolished, one_shell_A=shell)
+    emit(row)
+    if launches:
+        raise RuntimeError("polish launched shift_scored_match")
+    if not (out["polished"] == len(mrc.read(os.path.join(work, "stack.mrc")))
+            and fsc <= fsc_unpolished + shell):
+        raise RuntimeError(f"polish: FSC {fsc:.3f} Å against "
+                           f"{fsc_unpolished:.3f} Å unpolished")
+    return launches
+
+
 def phase_tomography():
     """The tomography phases on one synthetic series in a temporary
-    directory. Returns the kernel launches of the `tomo` run."""
+    directory, then CSP and SVA on the `tomo` run's project. Returns the
+    kernel launches of the `tomo`, `csp` and `sva` runs."""
     with tempfile.TemporaryDirectory() as root:
         data_dir = os.path.join(root, "data")
         tt = phase_tomo_synthesize(data_dir)
@@ -1746,7 +2265,47 @@ def phase_tomography():
         phase_tomo_mdoc(root, tt)
         phase_tomo_layers(data_dir, tt)
         phase_tomo_thick(root)
-    return launches
+        csp, sva = phase_subtomo(root)
+    return {"tomo": launches, "csp": csp, "sva": sva}
+
+
+def phase_subtomo(root):
+    """The subtomogram phases on their own field: `tools/e2e_tomo.
+    CSP_SERIES` (the tomo phase's series with a particle whose projections
+    change with its orientation), synthesized and run through `tomo` at
+    the same flags but template picking, then `csp` and `sva` on copies
+    of that project.
+    Returns the kernel launches of the csp and sva runs."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    data_dir = os.path.join(root, "csp_data")
+    (truth, _), synth_s = _sync_s(lambda: e2e_tomo.write_series(
+        data_dir, device="cuda", **e2e_tomo.CSP_SERIES))
+    tt = _TomoTruth(truth)
+    base = os.path.join(root, "csp_tomo")
+    os.makedirs(base)
+    # picked by template matching with the particle map (to ~1 voxel; the
+    # slab picker's picks sit ~4 voxels off, too far for CSP's position
+    # gradient steps)
+    ref = os.path.join(root, "csp_particle.mrc")
+    mrc.write(e2e_tomo.particle_map(truth, 32, TOMO_REC_PIXEL).cpu().numpy(),
+              ref, pixel_size=TOMO_REC_PIXEL)
+    merge, wall = _cli_json(e2e_tomo.TOMO_ARGS + [
+        "-tomo_spk_method", "template", "-tomo_pick_ref", ref,
+        "-data_path", os.path.join(data_dir, "ts01.mrc")], base)
+    meta = _tomo_meta(base)
+    shape = mrc.read_header(os.path.join(base, "ts01.rec.mrc")).shape
+    rad = truth["particle_radius"] / TOMO_REC_PIXEL
+    row = {"phase": "csp_tomo", "synthesize_s": synth_s, "seconds": wall,
+           "particles": merge["particles"],
+           **_tomo_alignment(meta, truth, [], "csp_tomo"),
+           "recall_read": e2e_tomo.recall(meta["box"][:, :3],
+                                          tt.voxels(truth["particles"], shape),
+                                          rad)}
+    emit(row)
+    return phase_csp(data_dir, root, tt, base), phase_sva(root, tt, base)
+
 
 
 def main():
@@ -1771,7 +2330,8 @@ def main():
     del abinit_data
     gather2d = phase_classify2d()
     phase_classify3d()
-    phase_preprocess(volume)
+    polish = phase_preprocess(volume)
+    csp_layers = phase_csp_layers()
     tomo_launches = phase_tomography()
     print(smi, flush=True)
     emit({"kernels": [{
@@ -1779,7 +2339,8 @@ def main():
         "source": "pyp_tpu_torch/csrc/shift_scored_match.cu",
         "replaces": "pyp_tpu/ops/pallas_kernels.py:80",
         "launches": {"slice": launches, "abinit_classic": classic,
-                     "classify2d_gather": gather2d, "tomo": tomo_launches},
+                     "classify2d_gather": gather2d, **tomo_launches,
+                     "csp_layers": csp_layers, "polish": polish},
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "operations", "library_ms": k["library_ms"],

@@ -1,7 +1,8 @@
 """Diagnostic plots of the SPA path — the port of `plot_ctf_fit`,
 `plot_drift`, `plot_fsc`, `plot_guinier`, `plot_iteration_changes`,
-`plot_occupancy_history`, `histogram_particle_scores` and
-`plot_tilt_series_panel` of pyp_tpu/analysis/plots.py.
+`plot_occupancy_history`, `histogram_particle_scores`,
+`plot_tilt_series_panel` and `plot_local_trajectories` of
+pyp_tpu/analysis/plots.py.
 matplotlib is optional: each function imports it when called and raises
 ImportError where it is missing, which callers turn into a warning and a
 skipped plot."""
@@ -206,6 +207,29 @@ def plot_tilt_series_panel(angles, xf, ctf, out_path):
         ax.set_xlabel("tilt angle (°)")
         ax.set_ylabel("CTF fit resolution (Å)")
         ax.set_title("per-tilt fit quality", fontsize=9)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=110)
+    plt.close(fig)
+
+
+def plot_local_trajectories(coords, local_shifts, shape, out_path,
+                            scale: float = 20.0):
+    """Per-particle local motion trajectories over the micrograph footprint
+    (the reference's plot_trajectories, analysis/plot/core.py:1722).
+
+    coords: (P, 2) particle centers (y, x) px; local_shifts: (P, F, 2)
+    per-frame shifts px; shape: (ny, nx)."""
+    plt = _pyplot()
+    coords = np.asarray(coords)
+    traj = np.asarray(local_shifts)
+    fig, ax = plt.subplots(figsize=(6, 6 * shape[0] / max(shape[1], 1)))
+    for c, t in zip(coords, traj):
+        path = c[None] + scale * (t - t.mean(axis=0, keepdims=True))
+        ax.plot(path[:, 1], path[:, 0], "-", lw=0.8)
+        ax.plot(path[0, 1], path[0, 0], "k.", ms=2)
+    ax.set_xlim(0, shape[1])
+    ax.set_ylim(shape[0], 0)
+    ax.set_title(f"local trajectories (×{scale:g})", fontsize=9)
     fig.tight_layout()
     fig.savefig(out_path, dpi=110)
     plt.close(fig)

@@ -1,6 +1,7 @@
 """Command-line entry point of the port: the `spr`, `tomo`, `extract`,
 `gain`, `refine`, `classify2d`, `classify3d`, `clean`, `kselection`,
-`postprocess`, `fsc` and `mask` modes on a CUDA device.
+`postprocess`, `fsc`, `mask`, `csp`, `polish` and `sva` modes on a CUDA
+device.
 
     python -m pyp_tpu_torch.cli spr -data_path 'movies/*.mrc' -scope_pixel 1.0 ...
     python -m pyp_tpu_torch.cli tomo -data_path 'series/*.mrc' -scope_pixel 1.0 ...
@@ -15,6 +16,9 @@
     python -m pyp_tpu_torch.cli postprocess -sharpen_locres ...
     python -m pyp_tpu_torch.cli fsc half1.mrc half2.mrc [-fsc_mask mask.mrc]
     python -m pyp_tpu_torch.cli mask -mask_method auto|sphere|file ...
+    python -m pyp_tpu_torch.cli csp -data_path 'series/*.mrc' -csp_box 64 ...
+    python -m pyp_tpu_torch.cli polish -data_path 'movies/*.mrc' ...
+    python -m pyp_tpu_torch.cli sva -sva_box 48 [-sva_ref ref.mrc] ...
 
 `spr` preprocesses every movie `-data_path` matches (frame alignment, CTF
 estimation, picking) into one `<name>.meta.npz` bundle each, resuming
@@ -39,8 +43,14 @@ written and read by `config.params` in the same format as the JAX
 package's). `postprocess` sharpens the newest half maps under maps/
 (mask-corrected FSC, Guinier B, optional local resolution); `fsc` writes
 <out>.txt (and <out>.png with matplotlib) for map pairs given as
-arguments; `mask` writes <dataset>_mask.mrc. Each writes the files the
-JAX package's mode writes. Every other mode is not ported yet and exits
+arguments; `mask` writes <dataset>_mask.mrc. `csp` refines the tilt
+geometry and particle poses of every `tomo` bundle with picks against
+initial_model.mrc (or -csp_reference_model) and writes the subtomogram
+average's maps under maps/, the refined xf/tlt/csp_scores into the
+bundles and an ArtiaX star per series; `polish` refines per-particle
+frame trajectories of the SPA movies against the newest map and rewrites
+stack.mrc; `sva` aligns and averages subvolumes at the 3D picks of every
+*.rec.mrc. Each writes the files the JAX package's mode writes. Every other mode is not ported yet and exits
 non-zero; SLURM submission, the learned picker (`-detect_method nn`), the
 micrograph denoiser (`-denoise_spr n2n`), `-prism_enable`, the trained
 tomogram denoisers (`-denoise_method n2n|wedge`) and the membrane network
@@ -764,18 +774,485 @@ def mode_mask(argv, device="cuda"):
     return 0
 
 
+def _refuse_slurm(mode, params):
+    if slurm_requested(params):
+        raise NotImplementedError(
+            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
+            f"{mode} is not ported; run it on the local executor")
+
+
+def _csp_load_item(item, params):
+    """Load one tilt-series' data + picks for a CSP pass. Returns (item2
+    dict, meta, params-with-spin-default, nz) or None if the series has no
+    usable metadata/picks. The picks are scaled by the bundle's binning and
+    centred on tomo_rec_thickness (the port's tomogram has exactly that
+    many unbinned slices); random start eulers are seeded from a stable
+    hash of the series name."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.pipeline.csp import stable_seed
+
+    meta = ItemMetadata(item["name"], ".", mode="tomo").load()
+    if not (meta.exists() and "box" in meta and "tlt" in meta):
+        logger.warning("skipping %s: no tomo metadata/picks", item["name"])
+        return None
+    tilts = mrc.read(item["path"]).astype(np.float32)
+    binning = float(meta.scalars.get("binning", 1.0))
+    picks = meta["box"][:, :3] * binning  # unbinned voxel coords (z, y, x)
+    nz = float(params.get("tomo_rec_thickness") or tilts.shape[-1])
+    center = np.array([nz / 2, tilts.shape[-2] / 2, tilts.shape[-1] / 2])
+    coords = picks - center
+    pf = str(params.get("csp_parfile") or "")
+    ext_eulers = None
+    if pf:
+        # external parameter-table initialization (csp block `parfile`):
+        # per-series <dir>/<name>.cistem or a single table file
+        from pyp_tpu_torch.io import cistem
+
+        cand = Path(pf)
+        if cand.is_dir():
+            cand = cand / f"{item['name']}.cistem"
+        if cand.exists():
+            t = cistem.read_parameters(cand)
+            if t.n_rows == len(coords):
+                ext_eulers = np.stack(
+                    [t["phi"], t["theta"], t["psi"]], 1).astype(np.float32)
+            else:
+                logger.warning(
+                    "csp_parfile %s: %d rows vs %d picks — ignored",
+                    cand, t.n_rows, len(coords))
+    if ext_eulers is not None:
+        eulers = ext_eulers
+    elif "spk_eulers" in meta and len(meta["spk_eulers"]) == len(coords):
+        # surface-normal orientation priors: the spin about the spike axis
+        # is free, so the spin ring runs unless a step was set
+        eulers = np.asarray(meta["spk_eulers"], dtype=np.float32)
+        if not float(params.get("csp_spin_search") or 0.0):
+            params = {**params, "csp_spin_search": 15.0}
+    elif params.get("tomo_pick_rand", True):
+        rng = np.random.RandomState(stable_seed(item["name"]))
+        eulers = rng.uniform(0, 360, (len(coords), 3)).astype(np.float32)
+    else:
+        # deterministic zero-euler start: the searches do the work
+        eulers = np.zeros((len(coords), 3), dtype=np.float32)
+    item2 = {"name": item["name"], "tilts": tilts, "coords": coords,
+             "eulers": eulers, "angles": meta["tlt"]}
+    return item2, meta, params, nz
+
+
+def _csp_post_series(name, tilts, refined, meta, params, nz, device):
+    """Post-refinement per-series exports (the ArtiaX star, tilt stacks)."""
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    if params.get("export_artiax", True):
+        # per-series "ministar" for ChimeraX/ArtiaX mapped-back display
+        from pyp_tpu_torch.io.relion_tomo import export_artiax_star
+
+        meta2 = ItemMetadata(name, ".", mode="tomo").load()
+        tb = max(1, int(params.get("tomo_rec_binning") or 8))
+        rec_shape = (int(nz) // tb, tilts.shape[-2] // tb,
+                     tilts.shape[-1] // tb)
+        export_artiax_star(
+            name, refined.particle_pos.cpu().numpy(),
+            refined.particle_eulers.cpu().numpy(), rec_shape, tb,
+            Path("artiax") / f"{name}_K1.star",
+            scores=(meta2["csp_scores"] if "csp_scores" in meta2 else None))
+    if params.get("csp_save_stacks"):
+        _export_tilt_stacks(name, tilts, refined, meta, params, device)
+
+
+def _csp_one_series(item, params, ref, device):
+    """cspswarm element: one tilt-series refinement + accumulator dump to
+    disk (the per-series csp job whose dumps cspmerge sums)."""
+    from pyp_tpu_torch.ops.reconstruct import save_accumulators
+    from pyp_tpu_torch.pipeline import csp as csp_pipe
+
+    dump = Path("swarm") / f"{item['name']}.acc.npz"
+    if params.get("csp_resume") and dump.exists():
+        # stage-level idempotency: a series whose dump survives is not
+        # refined again
+        logger.info("csp %s: resume — reusing %s", item["name"], dump)
+        return {"name": item["name"], "dump": str(dump), "resumed": True}
+    loaded = _csp_load_item(item, params)
+    if loaded is None:
+        return None
+    item2, meta, params, nz = loaded
+    refined, acc, scores = csp_pipe.csp_swarm_one(item2, params, ref, ".",
+                                                  device=device)
+    dump.parent.mkdir(exist_ok=True)
+    save_accumulators(acc, dump)
+    _csp_post_series(item["name"], item2["tilts"], refined, meta, params, nz,
+                     device)
+    logger.info("csp %s: scores %s", item["name"],
+                [round(s, 3) for s in scores])
+    return {"name": item["name"], "dump": str(dump),
+            "particles": int(len(item2["coords"]))}
+
+
+def _csp_series_batch(group, params, ref, device):
+    """cspswarm bundle: a batch of tilt-series refined together
+    (pipeline.csp.csp_swarm_batch) with their accumulators chained into
+    one dump."""
+    from pyp_tpu_torch.ops.reconstruct import save_accumulators
+    from pyp_tpu_torch.pipeline import csp as csp_pipe
+
+    loaded = [(_csp_load_item(it, params), it) for it in group]
+    usable = [(l, it) for l, it in loaded if l is not None]
+    if not usable:
+        return None
+    items2 = [l[0] for l, _ in usable]
+    # spin default: any series with orientation priors turns the ring on
+    # for the whole batch (one schedule per batch)
+    batch_params = params
+    for l, _ in usable:
+        if l[2] is not params:
+            batch_params = l[2]
+            break
+    refined_list, acc, scores_list, _pscores = csp_pipe.csp_swarm_batch(
+        items2, batch_params, ref, ".", device=device)
+    first = usable[0][1]["name"]
+    dump = Path("swarm") / f"{first}.batch.acc.npz"
+    dump.parent.mkdir(exist_ok=True)
+    save_accumulators(acc, dump)
+    total = 0
+    for (l, it), refined, scores in zip(usable, refined_list, scores_list):
+        item2, meta, _p2, nz = l
+        _csp_post_series(it["name"], item2["tilts"], refined, meta,
+                         batch_params, nz, device)
+        logger.info("csp %s: scores %s", it["name"],
+                    [round(s, 3) for s in scores])
+        total += len(item2["coords"])
+    return {"name": first, "dump": str(dump), "particles": int(total),
+            "series": [it["name"] for _, it in usable]}
+
+
+def _export_tilt_stacks(name, tilts, refined, meta, params, device):
+    """Window every particle in every tilt at the refined geometry and save
+    (stacks, poses, ctf, weights) for tilt-aware heterogeneity training
+    (stacks/<name>_stack.npz)."""
+    from pyp_tpu_torch import as_f32
+    from pyp_tpu_torch.core.geometry import matrix_to_euler
+    from pyp_tpu_torch.ops import csp as csp_ops
+
+    T, ny, nx = tilts.shape
+    box = int(params.get("csp_box") or 64)
+    pixel = float(params["scope_pixel"])
+    pred = csp_ops.project_positions(refined).cpu().numpy()     # (T, P, 2)
+    depth = csp_ops.particle_depth(refined).cpu().numpy()       # (T, P)
+    P = pred.shape[1]
+    center = np.array([ny // 2, nx // 2])
+    defocus = (np.asarray(meta["ctf"][:, :2], dtype=np.float32)
+               if "ctf" in meta else np.full((T, 2), 20000.0, np.float32))
+    ci = np.round(pred + center).astype(np.int32)
+    stacks = csp_ops.cut_windows(as_f32(tilts, refined.tilt_angles.device),
+                                 ci, box).transpose(0, 1).cpu().numpy()
+    phi, theta, psi = matrix_to_euler(csp_ops.effective_rotations(refined))
+    eulers = np.stack([a.cpu().numpy() for a in (phi, theta, psi)],
+                      -1)                                         # (T, P, 3)
+    # effective window centre exactly as the windowing clamps it
+    starts = np.clip(ci - box // 2, 0, [ny - box, nx - box])
+    resid = (pred + center) - (starts + box // 2)               # (T, P, 2)
+    poses = np.zeros((P, T, 5), dtype=np.float32)
+    poses[:, :, :3] = eulers.transpose(1, 0, 2)
+    # stored shift s centres content sitting at offset -s
+    poses[:, :, 3:5] = -resid.transpose(1, 0, 2)
+    df = 0.5 * (defocus[:, 0] + defocus[:, 1])[:, None] + depth * pixel
+    ctf = np.zeros((P, T, 4), dtype=np.float32)
+    ctf[:, :, 0] = ctf[:, :, 1] = df.T
+    out = Path("stacks")
+    out.mkdir(exist_ok=True)
+    np.savez_compressed(
+        out / f"{name}_stack.npz", stacks=stacks.astype(np.float32),
+        poses=poses, ctf=ctf, weights=np.ones((P, T), dtype=np.float32))
+    logger.info("saved %d tilt stacks for %s", P, name)
+
+
+def _csp_resumed_merge(items, params, device):
+    """With -csp_resume, a project in which every series has its dump and
+    the merged maps are newer than every dump is complete: the merge is
+    not run again (it would write the same maps), and the summary's
+    resolution is read from the half maps written. None otherwise."""
+    from pyp_tpu_torch import as_f32
+    from pyp_tpu_torch.core import fsc as fsc_mod
+    from pyp_tpu_torch.io import mrc
+
+    if not params.get("csp_resume") or not items:
+        return None
+    stem = Path("maps") / f"{params.get('data_set') or 'dataset'}_csp_02"
+    outs = [Path(f"{stem}{s}.mrc") for s in ("", "_half1", "_half2")]
+    dumps = [Path("swarm") / f"{it['name']}.acc.npz" for it in items]
+    if not all(p.exists() for p in outs + dumps):
+        return None
+    if min(p.stat().st_mtime for p in outs) < max(p.stat().st_mtime
+                                                  for p in dumps):
+        return None
+    h1, h2 = (as_f32(mrc.read(p), device) for p in outs[1:])
+    freqs, curve = fsc_mod.fsc(h1, h2)
+    res = float(fsc_mod.resolution_at_threshold(
+        freqs.cpu(), curve.cpu(), float(params["scope_pixel"]), 0.143))
+    logger.info("csp: resume — every series and the merge are done")
+    return {"resolution": res, "series": len(dumps), "missing": [],
+            "resumed": True}
+
+
+def mode_csp(argv, device="cuda"):
+    """CSPT refinement over preprocessed tilt-series: the cspswarm ->
+    cspmerge job graph (per-series refinement + accumulator dumps, or
+    batches of -csp_batch_series series refined together, then one merge
+    summing the dumps on the card). With -csp_resume a series whose dump
+    exists is not refined again, and a project whose merge is newer than
+    every dump is not merged again (_csp_resumed_merge)."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.config.blocks import apply_block_overrides
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.ops.reconstruct import load_accumulators
+    from pyp_tpu_torch.pipeline import csp as csp_pipe
+    from pyp_tpu_torch.sched import JobGraph, LocalExecutor
+
+    if not params.get("csp_parfile") and params.get("csp_parfile_tomo"):
+        params = {**params, "csp_parfile": params["csp_parfile_tomo"]}
+    block = str(params.get("csp_block") or "")
+    if block:
+        # per-block stage overrides (the reference's [tabs.csp_tomo_*])
+        params = apply_block_overrides(params, block)
+        logger.info("csp block %s: modes %s", block,
+                    params.get("csp_refine_modes"))
+    items = _discover_items(params)
+    _refuse_slurm("csp", params)
+    dev = resolve_device(device)
+    ref_path = Path(str(params.get("csp_reference_model") or "")
+                    or "initial_model.mrc")
+    if not ref_path.exists():
+        logger.error("csp needs %s (reference map)", ref_path)
+        return 1
+    ref = mrc.read(ref_path).astype(np.float32)
+    box = int(params.get("csp_box") or ref.shape[-1])
+    resumed = _csp_resumed_merge(items, params, dev)
+    if resumed is not None:
+        print(json.dumps(resumed, indent=1, default=str))
+        return 0
+
+    def merge_fn(results, missing):
+        accs = [load_accumulators(r["dump"], device=dev)
+                for r in results.values() if r]
+        if not accs:
+            raise RuntimeError("no tilt-series with picks found")
+        out, res = csp_pipe.csp_merge(accs, box, params, ".",
+                                      params.get("data_set") or "dataset")
+        return {"resolution": res, "series": len(accs), "missing": missing}
+
+    graph = JobGraph("csp")
+    # series batching: B series per batch (csp_swarm_batch) unless a
+    # per-series-only path is requested (patch grids, frame refinement)
+    bsz = int(params.get("csp_batch_series") or 1)
+    grid_str = str(params.get("csp_Grid") or "").strip()
+    has_grid = bool(grid_str) and np.prod(
+        [int(v) for v in grid_str.replace(",", ":").split(":")]) > 1
+    batchable = bsz > 1 and not params.get("csp_frames") and not has_grid
+    retries = dict(max_retries=int(params.get("slurm_retries") or 2),
+                   merge_retries=int(params.get("slurm_merge_retries") or 2))
+    if batchable and len(items) > 1:
+        groups = [items[i:i + bsz] for i in range(0, len(items), bsz)]
+        graph.swarm("cspswarm", groups,
+                    work_fn=lambda group: _csp_series_batch(group, params,
+                                                            ref, dev),
+                    merge_fn=merge_fn, **retries)
+    else:
+        graph.swarm("cspswarm", items,
+                    work_fn=lambda item: _csp_one_series(item, params, ref,
+                                                         dev),
+                    merge_fn=merge_fn, **retries)
+    LocalExecutor(max_workers=int(params.get("slurm_local_tasks") or 0)
+                  or int(params.get("slurm_tasks") or 1)).run(graph)
+    merge = graph.jobs["cspswarm.merge"]
+    print(json.dumps(merge.result, indent=1, default=str))
+    return 0 if merge.status == "done" else 1
+
+
+def mode_polish(argv, device="cuda"):
+    """Per-particle movie refinement: re-extract particles from raw frames
+    at drift-corrected positions, refine per-frame trajectories against the
+    latest map, and rebuild stack.mrc dose-weighted, each polished particle
+    normalized as `extract` normalizes it."""
+    params = _project_params(argv)
+    import torch
+
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.ops import polish as polish_ops
+    from pyp_tpu_torch.ops.extract import normalize_particles
+    from pyp_tpu_torch.pipeline.refine import (table_to_ctf_params,
+                                               table_to_poses)
+    from pyp_tpu_torch.pipeline.spr import apply_gain, load_movie
+    from pyp_tpu_torch.utils import Timer
+
+    _refuse_slurm("polish", params)
+    dev = resolve_device(device)
+    table = cistem.read_parameters("stack.cistem")
+    dataset = params.get("data_set") or "dataset"
+    maps = sorted(Path("maps").glob(f"{dataset}_r??_??.mrc"))
+    if not maps:
+        logger.error("polish needs refined maps under maps/")
+        return 1
+    ref = mrc.read(maps[-1]).astype(np.float32)
+    pixel = float(params["scope_pixel"])
+    box = int(params["extract_box"])
+    films = np.asarray(table["particle_group"]).astype(int)
+    items = _discover_items(params)
+    poses = table_to_poses(table, pixel)
+    ctf = table_to_ctf_params(table)
+    new_stack = np.array(mrc.read("stack.mrc"), dtype=np.float32, copy=True)
+    n_polished = 0
+    for film, item in enumerate(items, start=1):
+        sel = np.where(films == film)[0]
+        meta = ItemMetadata(item["name"], ".", mode="spr").load()
+        if len(sel) == 0 or "box" not in meta:
+            continue
+        with Timer(f"polish {item['name']}"):
+            frames = apply_gain(load_movie(item["path"]), params)
+            coords = meta["box"][:, :2].astype(np.int32)[: len(sel)]
+            drift = meta["drift"] if "drift" in meta else None
+            stack_p, traj = polish_ops.polish(
+                frames, coords, poses[sel], ctf[sel], ref, pixel, box,
+                global_shifts=drift,
+                reg_weight=float(params.get("polish_reg") or 2.0),
+                spatial_sigma=float(params.get("polish_spatial_sigma") or 0.0),
+                iters=int(params.get("polish_iters") or 30),
+                lr=float(params.get("polish_lr") or 0.15), device=dev)
+            # the polished particles replace extracted ones: normalized as
+            # `extract` normalizes them (the JAX mode writes the raw frame
+            # average, background offset and all, into the normalized stack)
+            sign = -1.0 if params.get("extract_inv", True) else 1.0
+            new_stack[sel] = sign * normalize_particles(stack_p).cpu().numpy()
+        n_polished += len(sel)
+        logger.info("polish %s: %d particles, trajectory RMS %.4f px",
+                    item["name"], len(sel),
+                    float(torch.sqrt(torch.mean(traj * traj))))
+        if params.get("plot_per_item", True):
+            # per-particle trajectory overlay (reference plot_trajectories)
+            try:
+                from pyp_tpu_torch.analysis.plots import (
+                    plot_local_trajectories)
+
+                plot_local_trajectories(
+                    coords, traj.cpu().numpy(), frames.shape[-2:],
+                    f"{item['name']}_trajectories.png")
+            except (ImportError, OSError, ValueError) as e:
+                logger.warning("trajectory plot skipped: %s", e)
+    mrc.write(new_stack, "stack.mrc", pixel_size=pixel)
+    print(json.dumps({"polished": n_polished}))
+    return 0
+
+
+def mode_sva(argv, device="cuda"):
+    """Legacy subvolume averaging: gather subvolumes at the 3D picks of
+    every reconstructed tomogram (*.rec.mrc), align them to a reference
+    (-sva_ref, or reference-free from the raw average) with the bank-
+    rotation FFT matcher, and write the wedge-compensated average
+    (<dataset>_sva.mrc), per-class averages with -sva_classes > 1, and
+    sva_alignment.npz."""
+    params = _project_params(argv)
+    import torch
+
+    from pyp_tpu_torch import as_f32, resolve_device
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.ops import sva as sva_ops
+    from pyp_tpu_torch.ops.extract import subvolume_gather
+
+    _refuse_slurm("sva", params)
+    dev = resolve_device(device)
+    box = int(params.get("sva_box") or 48)
+    # extraction boundary (extract_bnd): cut a larger window, keep box³
+    bnd = max(int(params.get("extract_bnd") or 0), box)
+    subs, names = [], []
+    for rec in sorted(glob.glob("*.rec.mrc")):
+        name = Path(rec).name[: -len(".rec.mrc")]
+        meta = ItemMetadata(name, ".", mode="tomo").load()
+        if "box" not in meta:
+            continue
+        vol = mrc.read(rec).astype(np.float32)
+        coords = np.asarray(meta["box"])[:, :3]
+        ok = np.all((coords >= box // 2)
+                    & (coords < np.asarray(vol.shape) - box // 2), axis=1)
+        if not ok.any():
+            continue
+        got = subvolume_gather(as_f32(vol, dev),
+                               np.round(coords[ok]).astype(np.int64), bnd)
+        if bnd > box:
+            lo = (bnd - box) // 2
+            got = got[:, lo:lo + box, lo:lo + box, lo:lo + box]
+        subs.append(got)
+        names.extend(f"{name}:{i}" for i in np.nonzero(ok)[0])
+    if not subs:
+        logger.error("sva: no *.rec.mrc with 3D picks found")
+        return 1
+    subs = torch.cat(subs)
+    ref = None
+    if params.get("sva_ref"):
+        ref = mrc.read(str(params["sva_ref"])).astype(np.float32)
+
+    def _pair(key, default):
+        v = str(params.get(key) or default)
+        a, b = (float(x) for x in v.replace(":", ",").split(","))
+        return (a, b)
+
+    wedge = float(params.get("sva_wedge") or 60.0)
+    res = sva_ops.sva_iterate(
+        subs, reference=ref,
+        iters=int(params.get("sva_iters") or 3),
+        angular_step=float(params.get("sva_ang") or 30.0),
+        symmetry=str(params.get("particle_sym") or "C1"),
+        shift_extent=int(params.get("sva_shift") or 8),
+        wedge_deg=wedge,
+        lowpass=_pair("sva_lowpass", "0.25,0.05"),
+        highpass=_pair("sva_highpass", "0,0"),
+        mask_rad=float(params.get("sva_mask_rad") or 0.0),
+        mask_sigma=float(params.get("sva_mask_sigma") or 4.0),
+        centering_iters=int(params.get("sva_centering_iters") or 0),
+        keep_fraction=float(params.get("sva_keep_fraction") or 1.0),
+        local_refine=bool(params.get("sva_local", True)), device=dev)
+    out = f"{params.get('data_set') or 'dataset'}_sva.mrc"
+    pix = float(params["scope_pixel"]) * int(params.get("tomo_rec_binning")
+                                             or 1)
+    mrc.write(res.average.cpu().numpy().astype(np.float32), out,
+              pixel_size=pix)
+    angles, shifts = res.angles.cpu().numpy(), res.shifts.cpu().numpy()
+    scores = res.scores.cpu().numpy()
+    report = {"subvolumes": int(len(subs)), "average": out,
+              "mean_score": float(np.mean(scores))}
+    labels = None
+    K = int(params.get("sva_classes") or 1)
+    if K > 1:
+        labels, class_avgs = sva_ops.classify_subvolumes(
+            subs, angles, shifts, K, wedge_deg=wedge, device=dev)
+        stem = str(params.get("data_set") or "dataset")
+        for k, avg in enumerate(class_avgs):
+            mrc.write(avg.cpu().numpy().astype(np.float32),
+                      f"{stem}_sva_class{k:02d}.mrc", pixel_size=pix)
+        report["classes"] = [int(np.sum(labels == k)) for k in range(K)]
+    np.savez("sva_alignment.npz", names=np.asarray(names), angles=angles,
+             shifts=shifts, scores=scores,
+             **({"labels": labels} if labels is not None else {}))
+    print(json.dumps(report))
+    return 0
+
+
 PORTED = {"spr": mode_spr, "tomo": mode_tomo, "extract": mode_extract,
           "gain": mode_gain,
           "refine": mode_refine, "classify2d": mode_classify2d,
           "classify3d": mode_classify3d, "clean": mode_clean,
           "kselection": mode_kselection, "postprocess": mode_postprocess,
-          "fsc": mode_fsc, "mask": mode_mask}
+          "fsc": mode_fsc, "mask": mode_mask, "csp": mode_csp,
+          "polish": mode_polish, "sva": mode_sva}
 
 
 def main(argv=None, device="cuda"):
     """Entry point: `main([mode, ...], device=...)` for the ported modes
     (spr, tomo, extract, gain, refine, classify2d, classify3d, clean,
-    kselection, postprocess, fsc, mask). Returns the exit code; other
+    kselection, postprocess, fsc, mask, csp, polish, sva). Returns the exit code; other
     modes are not yet ported and return 2."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):

@@ -5,11 +5,64 @@ and the `refine` mode need: `BLOCK_FIELDS` (which fields each of nextPYP's
 [tabs.csp_tomo_*] blocks exposes; the schema declares a parameter for
 each) and `REFERENCE_ALIASES` with `apply_reference_aliases`, which lands
 reference-spelled ids (metric_*, sharpen_cistem_*, dose_weighting_*, the
-UI's file-picker twins, ...) on their engine targets. The block overrides
-(`apply_block_overrides`) drive the CSP mode, which is not ported.
+UI's file-picker twins, ...) on their engine targets; and the block
+overrides of the `csp` mode (`apply_block_overrides` with
+`block_mode_schedule`), which land a block tab's values on the csp_*
+parameters.
 """
 
 from __future__ import annotations
+
+# engine-namespace targets shared by every refinement block
+_SHARED_FIELDS = {
+    "ToleranceMicrographTiltAngles": "csp_ToleranceMicrographTiltAngles",
+    "ToleranceMicrographTiltAxisAngles":
+        "csp_ToleranceMicrographTiltAxisAngles",
+    "ToleranceMicrographShifts": "csp_ToleranceMicrographShifts",
+    "ToleranceParticlesPhi": "csp_ToleranceParticlesPhi",
+    "ToleranceParticlesPsi": "csp_ToleranceParticlesPsi",
+    "ToleranceParticlesTheta": "csp_ToleranceParticlesTheta",
+    "ToleranceParticlesShifts": "csp_ToleranceParticlesShifts",
+    "ToleranceMicrographAstigmatism":
+        "csp_ToleranceMicrographAstigmatism",
+    "ToleranceMicrographDefocus1": "csp_ToleranceMicrographDefocus1",
+    "ToleranceMicrographDefocus2": "csp_ToleranceMicrographDefocus2",
+    "NumberOfRandomIterations": "csp_NumberOfRandomIterations",
+    "OptimizerMaxIter": "csp_OptimizerIters",
+    "OptimizerStepLength": "csp_OptimizerStepLength",
+    "OptimizerStepTolerance": "csp_OptimizerStepTolerance",
+    "OptimizerValueTolerance": "csp_OptimizerValueTolerance",
+    "GridSearch": "csp_GridSearch",
+    "Grid": "csp_Grid",
+    "AngleStep": "csp_AngleStep",
+    "ShiftStep": "csp_ShiftStep",
+    "parfile": "csp_parfile",
+    "resume": "csp_resume",
+    "first_iter": "refine_iter",
+    "iter": "refine_iter",
+    "maxiter": "refine_maxiter",
+    "transreg": "csp_transreg",
+    "spatial_sigma": "csp_spatial_sigma",
+    "time_sigma": "csp_time_sigma",
+    "num": "class_num",
+    "rhcls": "class_rhcls",
+    "focusmask": "class_focusmask",
+    "bin": "extract_bin",
+    "force_init": "class3d_force_init",
+    "refineeulers": "class3d_refineeulers",
+    "refineshifts": "class3d_refineshifts",
+    "InitialResolution": "csp_rlref",
+    "ResolutionLimit": "csp_rhref",
+    "InitialSkip": "abinit_skip",
+    "RandomSkipRatio": "abinit_random_skip_ratio",
+    "RandomParticles": "abinit_random_particles",
+    "model": "csp_reference_model",
+    "format": "import_format",
+    "parfile_tomo": "csp_parfile_tomo",
+    "refine_micrographs": None,   # consumed by the mode-schedule builder
+    "refine_particles": None,
+    "refine_ctf": None,
+}
 
 # which tab fields each block exposes (pyp_config.toml [tabs.csp_tomo_*])
 BLOCK_FIELDS: dict[str, tuple] = {
@@ -64,6 +117,34 @@ BLOCK_FIELDS: dict[str, tuple] = {
     ),
     "csp_tomo_free": ("format", "parfile_tomo", "parfile"),
 }
+
+
+# block behavior beyond plain value overrides
+_BLOCK_MODES = {
+    # init: particle orientations/shifts from scratch (grid + local)
+    "csp_tomo_init": dict(micrographs=False, particles=True, ctf=False),
+    # reference-based: particle axes only
+    "csp_tomo_reference": dict(micrographs=False, particles=True, ctf=False),
+    # movie: frame refinement, no geometry modes
+    "csp_tomo_movie": dict(frames=True),
+}
+
+
+def block_mode_schedule(micrographs: bool, particles: bool,
+                        ctf: bool) -> str:
+    """Compose the CSP mode schedule from the block's refine switches the
+    way the reference builds its mode list (align/core.py:1015-1023), in
+    this engine's measured-best order: micrograph shifts (3) then tilt
+    geometry (0) before particle shifts (2) then angles (1); defocus (4)
+    last."""
+    modes = []
+    if micrographs:
+        modes += [3, 0]
+    if particles:
+        modes += [2, 1]
+    if ctf:
+        modes += [4]
+    return ":".join(str(m) for m in modes) if modes else "2:1"
 
 
 # ---------------------------------------------------------------------------
@@ -642,4 +723,57 @@ def apply_reference_aliases(params: dict) -> dict:
             targets = (targets,)
         for t in targets:
             out[t] = val
+    return out
+
+
+def apply_block_overrides(params: dict, block: str) -> dict:
+    """Translate a block tab's values into the engine namespace. Unset tab
+    values (None) leave the engine value alone. Returns a NEW dict."""
+    if not block:
+        return params
+    if block not in BLOCK_FIELDS:
+        raise ValueError(
+            f"unknown csp block '{block}' (known: {sorted(BLOCK_FIELDS)})")
+    out = dict(params)
+    switches = dict(micrographs=None, particles=None, ctf=None)
+    for field in BLOCK_FIELDS[block]:
+        val = params.get(f"{block}_{field}")
+        if val in (None, ""):
+            continue
+        if field in ("refine_micrographs", "refine_particles", "refine_ctf"):
+            switches[field.split("_", 1)[1]] = bool(val)
+            continue
+        # Powell-optimizer units -> gradient-optimizer units: the
+        # reference's OptimizerMaxIter counts Powell iterations (default 5,
+        # each with internal line searches) where csp_OptimizerIters counts
+        # single gradient steps (default 20); OptimizerStepLength is a raw
+        # parameter-space step (default 20.0) where csp_OptimizerStepLength
+        # is a normalized-gradient factor (default 0.3). Scale so the
+        # reference defaults land on the engine defaults and user intent
+        # transfers proportionally.
+        if field == "OptimizerMaxIter":
+            val = int(round(float(val) * 4.0))
+        elif field == "OptimizerStepLength":
+            val = float(val) * (0.3 / 20.0)
+        target = _SHARED_FIELDS[field]
+        if target is not None:
+            out[target] = val
+    forced = _BLOCK_MODES.get(block, {})
+    if forced.get("frames"):
+        out["csp_frames"] = True
+    else:
+        sw = {k: (forced.get(k) if forced.get(k) is not None else v)
+              for k, v in switches.items()}
+        if any(v is not None for v in sw.values()):
+            out["csp_refine_modes"] = block_mode_schedule(
+                bool(sw["micrographs"]), bool(sw["particles"]),
+                bool(sw["ctf"]))
+    if block == "csp_tomo_classification" and int(
+            out.get("class_num") or 1) > 1:
+        # classification blocks default the eulers/shifts passes into the
+        # schedule the reference way (refineeulers/refineshifts counts)
+        ne = int(out.get("class3d_refineeulers") or 0)
+        ns = int(out.get("class3d_refineshifts") or 0)
+        out["csp_refine_modes"] = ":".join(
+            ["2"] * max(ns, 0) + ["1"] * max(ne, 0)) or "2:1"
     return out

@@ -135,3 +135,34 @@ def dose_weight_2d(shape, pixel_size, cumulative_doses, rfft=True,
     w = dose_weight(g[None], doses[:, None, None])
     norm = torch.sqrt(torch.sum(w * w, dim=0, keepdim=True))
     return w / torch.clamp(norm, min=1e-8)
+
+
+def frame_damage_weights(shape, frame_ranks, fraction: float = 4.0,
+                         transition: float = 0.75, multiply: bool = True,
+                         rfft=True, device=None):
+    """Data-driven per-frame/tilt damage envelope (the reference's
+    dose_weighting tab, merge/weights.py:76 `radDamage_weights`):
+
+        Ne(g) = max_soft(exp(-|g|)^fraction, floor)   (tanh switch, not hard)
+        w_f(g) = exp(-transition_eff * rank_f^4 / Ne(g))
+
+    frame_ranks: (F,) damage order in [0, 1] (0 = least damaged).
+    `fraction` steepens the frequency falloff, `transition` scales the
+    rank falloff, `multiply` scales it by the frame count. |g| is the
+    normalized radius in cycles/px. Output (F, ny, nxf) on `device`,
+    normalized so the sum of squares over frames is 1."""
+    ny, nx = shape
+    fy = _fftfreq(ny, 1.0, False, device).reshape(ny, 1)
+    fx = _fftfreq(nx, 1.0, rfft, device).reshape(1, -1)
+    g = torch.sqrt(fy * fy + fx * fx)
+    ne = torch.exp(-g) ** fraction
+    floor = float(np.exp(-0.5 * fraction) ** 37.0)  # reference switch_value
+    switch = floor ** (1.0 / 37.0)
+    sx = 0.5 * (1.0 + torch.tanh((torch.exp(-g) - switch) / 0.05))
+    ne = sx * ne + (1.0 - sx) * floor
+    ranks = torch.as_tensor(np.asarray(frame_ranks, dtype=np.float32),
+                            device=g.device)[:, None, None]
+    t_eff = transition * (len(np.asarray(frame_ranks)) if multiply else 1.0)
+    w = torch.exp(-t_eff * ranks ** 4 / ne[None])
+    norm = torch.sqrt(torch.sum(w * w, dim=0, keepdim=True))
+    return w / torch.clamp(norm, min=1e-8)

@@ -43,6 +43,15 @@ def rot_y(angle_deg):
     return _rot(angle_deg, "y")
 
 
+def rot_x(angle_deg):
+    a = torch.deg2rad(_as_angle(angle_deg))
+    c, s = torch.cos(a), torch.sin(a)
+    z = torch.zeros_like(c)
+    o = torch.ones_like(c)
+    rows = [[o, z, z], [z, c, -s], [z, s, c]]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
 def euler_to_matrix(phi, theta, psi):
     """ZYZ Euler angles (degrees; tensors or numbers, broadcastable) ->
     rotation matrix (..., 3, 3). Differentiable in the angles."""
@@ -166,3 +175,36 @@ def _axis_rot(axis, angle_deg):
     x, y, z = axis
     K = np.array([[0, -z, y], [z, 0, -x], [-y, x, 0]])
     return np.eye(3) * c + s * K + (1 - c) * np.outer(axis, axis)
+
+
+# CSP patch regions (host-side numpy; copied from pyp_tpu/core/geometry.py)
+
+def divide_regions(bounds_min, bounds_max, grid):
+    """Partition a 2D/3D bounding box into a regular grid of patches; returns
+    per-region (lo, hi) corners. Equivalent of the reference's
+    divide2regions (analysis/geometry/core.py:554) used for CSP patch
+    refinement."""
+    bounds_min = np.asarray(bounds_min, dtype=np.float64)
+    bounds_max = np.asarray(bounds_max, dtype=np.float64)
+    grid = np.asarray(grid, dtype=np.int64)
+    steps = (bounds_max - bounds_min) / grid
+    regions = []
+    for idx in np.ndindex(*grid):
+        lo = bounds_min + steps * np.asarray(idx)
+        hi = lo + steps
+        regions.append((lo, hi))
+    return regions
+
+
+def region_of(points, bounds_min, bounds_max, grid):
+    """Assign each point (N, D) to its region index in the regular grid."""
+    points = np.asarray(points, dtype=np.float64)
+    bounds_min = np.asarray(bounds_min)
+    bounds_max = np.asarray(bounds_max)
+    grid = np.asarray(grid, dtype=np.int64)
+    steps = (bounds_max - bounds_min) / grid
+    idx = np.clip(((points - bounds_min) / steps).astype(np.int64), 0, grid - 1)
+    flat = np.zeros(len(points), dtype=np.int64)
+    for d in range(points.shape[1]):
+        flat = flat * grid[d] + idx[:, d]
+    return flat

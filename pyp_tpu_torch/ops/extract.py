@@ -71,12 +71,21 @@ def extract_particles(
     if invert:
         stack = -stack
     if normalize:
-        bg = 1.0 - soft_circular_mask(s, s * 0.375, edge_px=2.0, device=dev)
-        wsum = torch.clamp(bg.sum(), min=1.0)
-        mu = (stack * bg).sum(dim=(-2, -1), keepdim=True) / wsum
-        var = (bg * (stack - mu) ** 2).sum(dim=(-2, -1), keepdim=True) / wsum
-        stack = (stack - mu) / torch.sqrt(torch.clamp(var, min=1e-12))
+        stack = normalize_particles(stack)
     return stack
+
+
+def normalize_particles(stack):
+    """Zero mean and unit variance of each particle's background, the
+    region outside 0.375 x the box (a 2 px soft edge): cisTEM's particle
+    normalization, on the stack's device."""
+    s = stack.shape[-1]
+    bg = 1.0 - soft_circular_mask(s, s * 0.375, edge_px=2.0,
+                                  device=stack.device)
+    wsum = torch.clamp(bg.sum(), min=1.0)
+    mu = (stack * bg).sum(dim=(-2, -1), keepdim=True) / wsum
+    var = (bg * (stack - mu) ** 2).sum(dim=(-2, -1), keepdim=True) / wsum
+    return (stack - mu) / torch.sqrt(torch.clamp(var, min=1e-12))
 
 
 def extract_from_frames(frames, coords, boxsize: int, shifts=None,

@@ -8,7 +8,8 @@ summation. The Wiener-regularized quotient with trilinear gridding
 correction gives the half maps, their FSC, and the FSC-filtered combined
 map.
 
-Options of the insertion: dose weighting (`doses`), likelihood blurring
+`accumulate_matrices` inserts with explicit rotation matrices (the CSPT
+path). Options of the insertion: dose weighting (`doses`), likelihood blurring
 (`lblur`: one insertion per psi offset and symmetry mate) and Ewald-sphere
 insertion (`iewald` ±1 curved, ±2 reference-based unmixing against the
 current map).
@@ -172,6 +173,58 @@ def accumulate(
     return prev
 
 
+def accumulate_matrices(
+    windows,             # (B, n, n) particle projections (e.g. CSP windows)
+    rotations,           # (B, 3, 3) full projection rotations (R_eff)
+    shifts,              # (B, 2) residual shifts to apply (pixels)
+    defoci,              # (B,) mean defocus per projection (Å)
+    subset,              # (B,) 0/1 half assignment
+    weights,             # (B,) weights (exposure * occupancy)
+    n: int,
+    pixel_size: float,
+    voltage_kv: float = 300.0,
+    cs_mm: float = 2.7,
+    amplitude_contrast: float = 0.07,
+    pad: int = DEFAULT_PAD,
+    prev: Accumulators | None = None,
+    iewald: int = 0,
+    ref_fourier=None,
+) -> Accumulators:
+    """Insertion with explicit rotation matrices — the CSPT path: each
+    (tilt, particle) projection window contributes a slice at pose
+    R_eff = R_tilt @ M_particle. Tensors on one device; `prev` is updated
+    in place. iewald: Ewald-sphere correction (see `accumulate`; magnitude
+    2 + ref_fourier = reference-based unmixing)."""
+    dev = windows.device
+    X = _shift_correct(image_to_fourier(windows), shifts, n)
+    z = torch.zeros_like(defoci)
+    cp = torch.stack([defoci, defoci, z, z], 1)
+    ctfs = _ctf_grids(n, pixel_size, cp, voltage_kv, cs_mm,
+                      amplitude_contrast)
+    pn = pad * n
+    nxf = pn // 2 + 1
+    if prev is None:
+        prev = Accumulators(
+            torch.zeros((pn, pn, nxf), dtype=torch.complex64, device=dev),
+            torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev),
+            torch.zeros((pn, pn, nxf), dtype=torch.complex64, device=dev),
+            torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev))
+    ewald_c = 0.0
+    if iewald:
+        ewald_c = (float(np.sign(iewald)) * ctf_model.wavelength_host(voltage_kv)
+                   / (2.0 * n * pixel_size))
+    chi = None
+    if abs(iewald) >= 2 and ref_fourier is not None and ewald_c:
+        chi = _chi_grids(n, pixel_size, cp, voltage_kv, cs_mm,
+                         amplitude_contrast)
+    parts = insert_slices_halves(
+        X, ctfs, rotations, subset, weights, n, pad=pad, ewald_c=ewald_c,
+        ref_fourier=ref_fourier if chi is not None else None, chi=chi)
+    for acc, part in zip(prev, parts):
+        acc.add_(part)
+    return prev
+
+
 def lblur_bank(lblur_nrot: int, lblur_range: float = 20.0):
     """Likelihood-blurring (offsets, weights) bank, or None when disabled:
     lblur_nrot psi offsets across lblur_range degrees centred on the
@@ -279,13 +332,17 @@ def reconstruct(
 
 def save_accumulators(acc: Accumulators, path):
     """Persist shard accumulators as one npz with the JAX package's keys
-    (num1, den1, num2, den2), so either package reads the other's file."""
-    np.savez_compressed(
+    (num1, den1, num2, den2), so either package reads the other's file.
+    Stored uncompressed: the accumulators are noise-like floats, which
+    zlib shrinks by a few percent at many times the write time (a box-256
+    CSP dump holds 1.6 GB)."""
+    np.savez(
         path, **{k: getattr(acc, k).detach().cpu().numpy()
                  for k in Accumulators._fields})
 
 
-def load_accumulators(path, device="cpu") -> Accumulators:
+def load_accumulators(path, device="cuda") -> Accumulators:
+    """Accumulators saved by either package, on `device`."""
     dev = resolve_device(device)
     with np.load(path) as z:
         return Accumulators(*(torch.as_tensor(z[k]).to(dev)

@@ -6,8 +6,12 @@ class with its own width and signed weight, the contrast it shows in the
 images and the tomogram (negative is dark; centred coordinates in Å,
 (z, y, x)):
 
-  particles  `n_particles` copies of one asymmetric cloud (6 points within
-             0.45 R of the centre, width 0.45 R, R = `particle_radius`),
+  particles  `n_particles` copies of one asymmetric cloud (6 points
+             0.2-0.45 R from the centre, width 0.45 R, R =
+             `particle_radius`; `particle_spread` and `particle_sigma` set
+             the distances and the width in units of R: `CSP_SERIES` plants
+             a sharper, wider cloud whose projections change with its
+             orientation),
              each turned by a random rotation, on a jittered grid at
              heights within `height` x the half thickness of mid-height
              (`SERIES` keeps them in a thin layer: a tracked patch follows
@@ -84,6 +88,11 @@ SERIES = dict(size=4096, pixel=1.0, tilt_min=-60.0, tilt_max=60.0,
 # beads within +-35% of the thickness (the known limit of patch tracking,
 # read without bars)
 THICK_SERIES = dict(SERIES, height=0.8, layer=0.35)
+# the CSP run's field: the same series with a particle that carries its
+# orientation at the band CSP refines in (6 Gaussians of 20 Å, 40-70 Å from
+# the centre; the default cloud, 45 Å Gaussians within 45 Å, projects the
+# same within 0.15% up to a 30° turn)
+CSP_SERIES = dict(SERIES, particle_spread=(0.4, 0.7), particle_sigma=0.2)
 # the tomography run's flags on top of the schema's defaults
 TOMO_ARGS = ["tomo", "-scope_pixel", "1.0", "-scope_voltage", "300",
              "-scope_cs", "2.7", "-scope_wgh", "0.07",
@@ -117,19 +126,21 @@ def _rotation(rng):
         [2*(b*d - a*c), 2*(c*d + a*b), a*a - b*b - c*c + d*d]])
 
 
-def particle_offsets(radius, seed=1):
-    """The canonical particle cloud: 6 offsets (z, y, x) in Å within
-    0.45 R of the centre (the same for every seed of the layout)."""
+def particle_offsets(radius, seed=1, spread=(0.2, 0.45)):
+    """The canonical particle cloud: 6 offsets (z, y, x) in Å between
+    spread[0] and spread[1] x R of the centre (the same for every seed of
+    the layout)."""
     rng = np.random.RandomState(seed)
     off = rng.uniform(-1, 1, (6, 3))
     off = off / np.linalg.norm(off, axis=1, keepdims=True)
-    off *= rng.uniform(0.2, 0.45, (6, 1)) * radius
+    off *= rng.uniform(spread[0], spread[1], (6, 1)) * radius
     return off - off.mean(0)
 
 
 def layout(field, thickness, particle_radius=100.0, n_particles=60,
            virion_radii=(280.0, 300.0, 320.0), bead_radius=50.0,
-           n_beads=24, height=0.06, layer=None, rng=None):
+           n_beads=24, height=0.06, layer=None, rng=None,
+           particle_spread=(0.2, 0.45), particle_sigma=0.45):
     """The specimen: a dict of classes {"points" (N, 3) Å (z, y, x),
     "weight" per point, "sigma" Å} and the planted truth of each object.
     `field` is the image's side in Å; the objects keep 5% of it clear of
@@ -169,14 +180,14 @@ def layout(field, thickness, particle_radius=100.0, n_particles=60,
     grid = np.stack([gy.ravel(), gx.ravel()], 1)[:n_particles]
     grid = grid + rng.uniform(-0.15, 0.15, grid.shape) * cell
     zs = rng.uniform(-height, height, len(grid)) * (half_t - 2 * particle_radius)
-    off = particle_offsets(particle_radius)
+    off = particle_offsets(particle_radius, spread=particle_spread)
     pts, centres = [], []
     for (y, x), z in zip(grid, zs):
         c = np.array([z, y, x])
         pts.append(c + off @ _rotation(rng).T)
         centres.append(c)
     classes["particle"] = dict(points=np.concatenate(pts), weight=1.0,
-                               sigma=0.45 * particle_radius)
+                               sigma=particle_sigma * particle_radius)
     truth["particles"] = np.asarray(centres).tolist()
 
     # filament: a rod along y lying in the specimen in the bottom band,
@@ -324,13 +335,16 @@ def make_truth(size=4096, pixel=1.0, tilt_min=-60.0, tilt_max=60.0,
                particle_radius=100.0, n_particles=60,
                virion_radii=(280.0, 300.0, 320.0), bead_radius=50.0,
                n_beads=24, height=0.06, layer=None, dose=50.0, contrast=0.5,
-               ice=0.1, seed=0):
+               ice=0.1, seed=0, particle_spread=(0.2, 0.45),
+               particle_sigma=0.45):
     """The planted layout and per-tilt parameters (numpy, no device)."""
     rng = np.random.RandomState(seed)
     angles = tilt_angles(tilt_min, tilt_max, tilt_step)
     classes, objects = layout(size * pixel, thickness, particle_radius,
                               n_particles, virion_radii, bead_radius,
-                              n_beads, height, layer, rng=rng)
+                              n_beads, height, layer, rng=rng,
+                              particle_spread=particle_spread,
+                              particle_sigma=particle_sigma)
     shifts = rng.uniform(-shift_px, shift_px, (len(angles), 2))
     shifts -= shifts[int(np.argmin(np.abs(angles)))]
     defoci = rng.uniform(df_min, df_max, len(angles))
@@ -340,7 +354,8 @@ def make_truth(size=4096, pixel=1.0, tilt_min=-60.0, tilt_max=60.0,
                  defoci=defoci.tolist(), hand=hand, thickness=thickness,
                  particle_radius=particle_radius, bead_radius=bead_radius,
                  movie_drift_dir=drift.tolist(), height=height, layer=layer,
-                 seed=seed,
+                 seed=seed, particle_spread=list(particle_spread),
+                 particle_sigma=particle_sigma,
                  **objects)
     return classes, truth, dict(dose=dose, contrast=contrast, ice=ice,
                                 seed=seed)
@@ -460,9 +475,17 @@ def particle_map(truth, box, rec_pixel, device="cuda"):
     """The planted particle (its canonical cloud, unrotated) in a box³ of
     `rec_pixel` Å voxels: the template of the template-matching run."""
     r = truth["particle_radius"]
-    return render({"particle": dict(points=particle_offsets(r), weight=1.0,
-                                    sigma=0.45 * r)},
+    spread, sigma = _particle_shape(truth)
+    return render({"particle": dict(points=particle_offsets(r, spread=spread),
+                                    weight=1.0, sigma=sigma * r)},
                   (box, box, box), rec_pixel, device)
+
+
+def _particle_shape(truth):
+    """(spread, sigma) of the planted particle (truth files written before
+    they were parameters hold the defaults)."""
+    return (tuple(truth.get("particle_spread", (0.2, 0.45))),
+            float(truth.get("particle_sigma", 0.45)))
 
 
 def _layout_kw(truth):
@@ -477,6 +500,7 @@ def _layout_kw(truth):
               n_beads=len(truth["beads"]), height=truth["height"],
               layer=truth.get("layer"),
               seed=truth["seed"])
+    kw["particle_spread"], kw["particle_sigma"] = _particle_shape(truth)
     return kw
 
 

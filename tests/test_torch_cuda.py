@@ -52,6 +52,14 @@ CTF-corrected tilts atol 1e-4 * max (SART 1e-3); template scores and
 filters atol 1e-4 * max, peaks the same set, surface radii within 1e-3
 voxel; one process_tilt_series: alignment within 1e-2 px, defocus within
 50 Å, tomogram atol 1e-3 * max, the same picks.
+
+The subtomogram slice (a 7-tilt series of 6 particles, box 24, made with
+the port's own CPU projection): a vectorized csp_refine_batch of two
+series with a grid search on the card against the sequential one on the
+CPU, parameters within 1e-3 (° and px), scores within 1e-4;
+accumulate_matrices of band-limited windows, half maps atol 1e-4 * max;
+the SVA score block the same angles and shifts, scores within 1e-4;
+refine_trajectories within 1e-3 px.
 """
 
 import numpy as np
@@ -818,3 +826,145 @@ def test_process_tilt_series_cuda_matches_cpu(tilt_series, tmp_path):
     np.testing.assert_allclose(mg["ctf"][:, :2], mc["ctf"][:, :2], atol=50.0)
     _close(rg, rc, 1e-3)
     assert {tuple(r[:3]) for r in mg["box"]} == {tuple(r[:3]) for r in mc["box"]}
+
+
+@pytest.fixture(scope="module")
+def csp_series():
+    """A 7-tilt series of 160² with 6 particles of a random box-24 map,
+    made with the port's own CPU projection (no JAX on the card's
+    machine), and two perturbed starts."""
+    from pyp_tpu_torch.core.filters import soft_spherical_mask
+    from pyp_tpu_torch.ops import csp
+
+    rng = np.random.RandomState(0)
+    n, ny, T, P = 24, 160, 7, 6
+    vol = rng.randn(n, n, n).astype(np.float32)
+    vol *= soft_spherical_mask(n, n * 0.33, 2.0).numpy()
+    vol = bandlimit3(vol, 6) * 20.0
+    angles = np.arange(-45.0, 46.0, 15.0, dtype=np.float32)
+    true = csp.make_params(
+        angles, np.full(T, 2.0, np.float32),
+        rng.uniform(-3, 3, (T, 2)).astype(np.float32),
+        rng.uniform(0, 360, (P, 3)).astype(np.float32),
+        np.stack([rng.uniform(-10, 10, P), rng.uniform(-50, 50, P),
+                  rng.uniform(-50, 50, P)], 1).astype(np.float32),
+        device="cpu")
+    Fv = fs.volume_to_fourier(torch.as_tensor(vol))
+    R_eff = csp.effective_rotations(true)
+    pos = csp.project_positions(true).numpy()
+    images = np.zeros((T, ny, ny), np.float32)
+    for t in range(T):
+        projs = fs.fourier_to_image(fs.project(Fv, R_eff[t], n), n).numpy()
+        for p in range(P):
+            iy, ix = np.round(pos[t, p] + ny // 2).astype(int)
+            images[t, iy - n // 2:iy + n // 2, ix - n // 2:ix + n // 2] += projs[p]
+    images += 0.05 * np.abs(images).max() * rng.randn(*images.shape).astype(np.float32)
+    starts = []
+    for amp in (1.0, 2.0):
+        starts.append(true._replace(
+            tilt_shifts=true.tilt_shifts + torch.as_tensor(
+                rng.uniform(-amp, amp, (T, 2)).astype(np.float32)),
+            particle_eulers=true.particle_eulers + torch.as_tensor(
+                rng.uniform(-3 * amp, 3 * amp, (P, 3)).astype(np.float32))))
+    return vol, images, np.full((T, 2), 15000.0, np.float32), starts
+
+
+def bandlimit3(vol, kmax):
+    n = vol.shape[-1]
+    k = np.fft.fftfreq(n) * n
+    r = np.sqrt(k[:, None, None] ** 2 + k[None, :, None] ** 2
+                + np.fft.rfftfreq(n)[None, None, :] ** 2 * n * n)
+    return np.fft.irfftn(np.fft.rfftn(vol) * (r < kmax), s=vol.shape).astype(
+        np.float32)
+
+
+def test_csp_refine_batch_cuda_matches_cpu(csp_series):
+    """Two series through the schedule (a mode-3 grid search, modes 3 and
+    1, 3 steps each): vectorized on the card, sequential on the CPU."""
+    from pyp_tpu_torch.ops import csp
+    from pyp_tpu_torch.ops.refine3d import make_mask_points
+
+    vol, images, defocus, starts = csp_series
+    n, T = 24, images.shape[0]
+    mask = make_mask_points(n, PIXEL, 60.0, 2.5 * PIXEL)
+    offs, spin = csp.build_mode_offsets((3, 1), {3: 1.0}, 3)
+
+    def run(dev, vmap):
+        prep = [csp.prepare_series_windows(images, csp.CspParams(
+            *(x.to(dev) for x in s)), n, mask, device=dev) for s in starts]
+        pb = csp.CspParams(*(torch.stack([getattr(s, f) for s in starts]).to(dev)
+                             for f in csp.CspParams._fields))
+        return csp.csp_refine_batch(
+            pb, torch.stack([x[0] for x in prep]),
+            on(np.stack([x[1] for x in prep]), dev),
+            on(np.stack([defocus] * 2), dev), on(mask, dev),
+            fs.volume_to_fourier(on(vol, dev)), torch.ones(2, T, device=dev),
+            on(np.stack([x[2] for x in prep]), dev), offs, spin, (3, 1), n,
+            PIXEL, iters_per_mode=3, series_vmap=vmap)
+
+    g, c = run("cuda", True), run("cpu", False)
+    for a, b in zip(g[0], c[0]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-3)
+    np.testing.assert_allclose(g[1].cpu().numpy(), c[1].numpy(), atol=1e-4)
+    np.testing.assert_allclose(g[2].cpu().numpy(), c[2].numpy(), atol=1e-4)
+
+
+def test_accumulate_matrices_cuda_matches_cpu():
+    from pyp_tpu_torch.core.geometry import euler_to_matrix
+
+    rng = np.random.RandomState(3)
+    B, n = 16, 24
+    wins = bandlimit(rng.randn(B, n, n).astype(np.float32))
+    eul = torch.as_tensor(rng.uniform(0, 360, (B, 3)).astype(np.float32))
+    R = euler_to_matrix(eul[:, 0], eul[:, 1], eul[:, 2]).numpy()
+    args = (wins, R, rng.uniform(-2, 2, (B, 2)).astype(np.float32),
+            rng.uniform(14000, 16000, B).astype(np.float32),
+            np.arange(B) % 2, np.ones(B, np.float32))
+
+    def run(dev):
+        acc = rec.accumulate_matrices(*(on(a, dev) for a in args), n, PIXEL)
+        return rec.finalize(acc, n)
+
+    g, c = run("cuda"), run("cpu")
+    for a, b in ((g.half1, c.half1), (g.half2, c.half2)):
+        _close(a.cpu().numpy(), b.numpy(), 1e-4)
+
+
+def test_sva_score_block_cuda_matches_cpu():
+    from pyp_tpu_torch.ops import sva
+
+    rng = np.random.RandomState(4)
+    n = 16
+    subs = rng.randn(5, n, n, n).astype(np.float32)
+    bank = rng.randn(6, n, n, n).astype(np.float32)
+    bank /= np.sqrt((bank ** 2).sum((1, 2, 3), keepdims=True))
+    norm = np.sqrt((subs ** 2).sum((1, 2, 3))).astype(np.float32)
+
+    def run(dev):
+        return sva._score_block(torch.fft.rfftn(on(subs, dev), dim=(-3, -2, -1)),
+                                on(bank, dev), on(norm, dev), 3)
+
+    g, c = run("cuda"), run("cpu")
+    np.testing.assert_array_equal(g[1].cpu().numpy(), c[1].numpy())
+    np.testing.assert_array_equal(g[2].cpu().numpy(), c[2].numpy())
+    np.testing.assert_allclose(g[0].cpu().numpy(), c[0].numpy(), atol=1e-4)
+
+
+def test_refine_trajectories_cuda_matches_cpu(data):
+    from pyp_tpu_torch.ops import polish
+
+    rng = np.random.RandomState(5)
+    P, F = 8, 5
+    frames = (np.repeat(data["stack"][:P, None], F, 1)
+              + 0.1 * rng.randn(P, F, N, N)).astype(np.float32)
+    poses = truth_poses(data)[:P]
+    pts = r3.make_mask_points(N, PIXEL, 100.0, 2.5 * PIXEL)
+
+    def run(dev):
+        return polish.refine_trajectories(
+            frames, poses, data["ctf_params"][:P],
+            fs.volume_to_fourier(on(data["volume"], dev)), pts, N, PIXEL,
+            iters=6, device=dev)
+
+    g, c = run("cuda"), run("cpu")
+    np.testing.assert_allclose(g[0].cpu().numpy(), c[0].numpy(), atol=1e-3)

@@ -371,13 +371,90 @@ def test_refused_preprocessing_options_raise_by_name(flags, word, tmp_path,
 
 
 @pytest.mark.parametrize("rel", ["analysis/occupancies.py", "io/mdoc.py",
-                                 "io/imod.py", "io/boxfiles.py"])
+                                 "io/imod.py", "io/boxfiles.py",
+                                 "analysis/fit.py"])
 def test_copied_modules_are_byte_identical(rel):
     """The port's copies of JAX-free modules that it keeps unchanged, but
     for the package name in their imports."""
     port = (REPO / "pyp_tpu_torch" / rel).read_text()
     assert port == (REPO / "pyp_tpu" / rel).read_text().replace(
         "from pyp_tpu.", "from pyp_tpu_torch."), rel
+
+
+@pytest.mark.parametrize("what", ["blocks", "geometry", "ctf", "artiax",
+                                  "trajectories_plot"])
+def test_partial_copies_behave_the_same(what, tmp_path):
+    """The parts of JAX-free (or JAX-light) modules the CSP slice copies:
+    the csp block overrides and mode schedule, the rotation about x and the
+    patch regions, the frame damage weights, the ArtiaX star (the same
+    bytes) and the trajectory plot."""
+    if what == "blocks":
+        from pyp_tpu.config import blocks as jb
+        from pyp_tpu_torch.config import blocks as tb
+
+        for sw in [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]:
+            assert tb.block_mode_schedule(*sw) == jb.block_mode_schedule(*sw)
+        base = {"class_num": 3, "class3d_refineeulers": 2,
+                "class3d_refineshifts": 1}
+        for block in jb.BLOCK_FIELDS:
+            p = dict(base, **{f"{block}_{f}": (True if f.startswith("refine_")
+                                               else 7)
+                              for f in jb.BLOCK_FIELDS[block][:6]})
+            assert tb.apply_block_overrides(p, block) == \
+                jb.apply_block_overrides(p, block)
+        with pytest.raises(ValueError):
+            tb.apply_block_overrides({}, "csp_tomo_absent")
+    elif what == "geometry":
+        from pyp_tpu.core import geometry as jg
+        from pyp_tpu_torch.core import geometry as tg
+
+        a = np.linspace(-170, 170, 7).astype(np.float32)
+        np.testing.assert_allclose(tg.rot_x(torch.as_tensor(a)).numpy(),
+                                   np.asarray(jg.rot_x(a)), atol=1e-6)
+        pts = np.random.RandomState(0).uniform(-5, 5, (40, 3))
+        for grid in ((2, 2, 1), (3, 1, 2)):
+            np.testing.assert_array_equal(
+                tg.region_of(pts, -5, 5, grid), jg.region_of(pts, -5, 5, grid))
+            for (a0, a1), (b0, b1) in zip(tg.divide_regions(-5, 5, grid),
+                                          jg.divide_regions(-5, 5, grid)):
+                np.testing.assert_array_equal(a0, b0)
+                np.testing.assert_array_equal(a1, b1)
+    elif what == "ctf":
+        from pyp_tpu.core import ctf as jc
+        from pyp_tpu_torch.core import ctf as tc
+
+        ranks = np.linspace(0, 1, 5)
+        for mult in (True, False):
+            np.testing.assert_allclose(
+                tc.frame_damage_weights((12, 16), ranks, 3.0, 0.5,
+                                        mult).numpy(),
+                np.asarray(jc.frame_damage_weights((12, 16), ranks, 3.0, 0.5,
+                                                   mult)),
+                rtol=1e-5, atol=1e-6)
+    elif what == "artiax":
+        from pyp_tpu.io import relion_tomo as jr
+        from pyp_tpu_torch.io import relion_tomo as tr
+
+        rng = np.random.RandomState(1)
+        args = ("ts", rng.uniform(-50, 50, (4, 3)), rng.uniform(0, 360, (4, 3)),
+                (32, 64, 64), 8)
+        kw = dict(scores=rng.rand(4), classes=[1, 2, 1, 2])
+        jr.export_artiax_star(*args, tmp_path / "j.star", **kw)
+        tr.export_artiax_star(*args, tmp_path / "t.star", **kw)
+        assert (tmp_path / "j.star").read_bytes() == \
+            (tmp_path / "t.star").read_bytes()
+    else:
+        pytest.importorskip("matplotlib")
+        from pyp_tpu.analysis import plots as jp
+        from pyp_tpu_torch.analysis import plots as tp
+
+        rng = np.random.RandomState(2)
+        args = (rng.uniform(0, 64, (3, 2)), rng.randn(3, 5, 2), (64, 64))
+        jp.plot_local_trajectories(*args, tmp_path / "j.png")
+        tp.plot_local_trajectories(*args, tmp_path / "t.png")
+        assert (tmp_path / "t.png").stat().st_size > 0
+        assert abs((tmp_path / "t.png").stat().st_size
+                   - (tmp_path / "j.png").stat().st_size) < 64
 
 
 def test_tomography_files_read_the_same(tmp_path):
@@ -449,7 +526,14 @@ ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "pick_filaments", "match_template_3d", "detect_spheres",
                 "detect_spheres_template", "match_on_surface",
                 "refine_virion_surface", "refine_surface_sh",
-                "pick_particles_3d", "cli_tomo"]
+                "pick_particles_3d", "cli_tomo", "load_accumulators",
+                "make_params", "csp_refine", "prepare_series_windows",
+                "series_params_from_metadata", "csp_swarm_one",
+                "csp_swarm_batch", "csp_refine_regions", "csp_classify",
+                "csp_polish_frames", "refine_trajectories", "polish",
+                "align_subvolumes", "refine_subvolumes", "center_subvolumes",
+                "classify_subvolumes", "average_subvolumes", "sva_iterate",
+                "cli_csp", "cli_polish", "cli_sva"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -458,10 +542,11 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     resolve_device where there is no card: none carries on on the CPU."""
     from pyp_tpu_torch.analysis import modelfit
     from pyp_tpu_torch.io.metadata import ItemMetadata
-    from pyp_tpu_torch.ops import (ab_initio, ctf_fit, denoise_classic,
+    from pyp_tpu_torch.ops import (ab_initio, csp, ctf_fit, denoise_classic,
                                    extract, filament, frm, motion, pick,
-                                   reconstruct, refine2d, refine3d,
-                                   template_match, tomo)
+                                   polish, reconstruct, refine2d, refine3d,
+                                   sva, template_match, tomo)
+    from pyp_tpu_torch.pipeline import csp as tcsp
     from pyp_tpu_torch.pipeline import tomo as ttomo
     from pyp_tpu_torch.pipeline import classify3d
     from pyp_tpu_torch.pipeline import refine as tref
@@ -484,6 +569,13 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     done.save()
     coords = np.array([[8, 8]])
     ang, sh = [-30.0, 30.0], np.zeros((2, 2), np.float32)
+    # the CSP inputs: params as CPU tensors, a series item
+    cparams = csp.make_params(ang, ang, sh, poses[:, :3], poses[:, :3],
+                              device="cpu")
+    citem = {"name": "done", "tilts": stack, "coords": poses[:, :3],
+             "eulers": poses[:, :3], "params": cparams, "defocus": sh}
+    np.savez("acc.npz", **{k: np.zeros((2, 2, 2)) for k in
+                           ("num1", "den1", "num2", "den2")})
     tmrc.write(stack, "stack.mrc")
     tcistem.write_parameters(table, "stack.cistem")
     calls = {
@@ -574,6 +666,37 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
         "pick_particles_3d": lambda: ttomo.pick_particles_3d(
             vol, {**params, "tomo_spk_method": "auto"}, 8.0),
         "cli_tomo": lambda: tcli.main(["tomo", "-data_path", "m.mrc"]),
+        "load_accumulators": lambda: reconstruct.load_accumulators("acc.npz"),
+        "make_params": lambda: csp.make_params(ang, ang, sh, poses[:, :3],
+                                               poses[:, :3]),
+        "csp_refine": lambda: csp.csp_refine(cparams, stack, sh, vol, 2.0, 8),
+        "prepare_series_windows": lambda: csp.prepare_series_windows(
+            stack, cparams, 8, np.zeros((3, 2))),
+        "series_params_from_metadata": lambda: tcsp.series_params_from_metadata(
+            done, poses[:, :3], poses[:, :3]),
+        "csp_swarm_one": lambda: tcsp.csp_swarm_one(citem, params, vol),
+        "csp_swarm_batch": lambda: tcsp.csp_swarm_batch([citem], params, vol),
+        "csp_refine_regions": lambda: tcsp.csp_refine_regions(
+            cparams, stack, sh, vol, 2.0, 8),
+        "csp_classify": lambda: tcsp.csp_classify([citem], params, [vol]),
+        "csp_polish_frames": lambda: tcsp.csp_polish_frames(
+            [stack], cparams, sh, vol, params),
+        "refine_trajectories": lambda: polish.refine_trajectories(
+            stack[:, None], poses, cp, None, np.zeros((3, 2)), 16, 2.0),
+        "polish": lambda: polish.polish(stack, coords, poses[:1], cp[:1],
+                                        vol, 2.0, 8),
+        "align_subvolumes": lambda: sva.align_subvolumes(vol[None], vol),
+        "refine_subvolumes": lambda: sva.refine_subvolumes(
+            vol[None], vol, np.zeros((1, 3)), np.zeros((1, 3)), 10.0, 5.0),
+        "center_subvolumes": lambda: sva.center_subvolumes(vol[None]),
+        "classify_subvolumes": lambda: sva.classify_subvolumes(
+            vol[None], np.zeros((1, 3)), np.zeros((1, 3)), 1),
+        "average_subvolumes": lambda: sva.average_subvolumes(
+            vol[None], np.zeros((1, 3)), np.zeros((1, 3))),
+        "sva_iterate": lambda: sva.sva_iterate(vol[None]),
+        "cli_csp": lambda: tcli.main(["csp", "-data_path", "m.mrc"]),
+        "cli_polish": lambda: tcli.main(["polish"]),
+        "cli_sva": lambda: tcli.main(["sva"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

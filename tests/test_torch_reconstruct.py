@@ -151,7 +151,7 @@ class TestStateRoundTrip:
     def test_jax_save_port_load(self, data, tmp_path):
         acc = self._acc(data)
         jrec.save_accumulators(acc, tmp_path / "acc.npz")
-        back = trec.load_accumulators(tmp_path / "acc.npz")
+        back = trec.load_accumulators(tmp_path / "acc.npz", device="cpu")
         out = trec.finalize(back, N)
         ref = jrec.finalize(acc, N)
         close(out.volume, ref.volume)

@@ -211,12 +211,12 @@ def test_cli_refine_and_unported(problem, tmp_path, monkeypatch):
 
     stack, table, start, _ = problem
     monkeypatch.chdir(tmp_path)
-    # a mode the port does not have exits 2; spr and tomo are ported
-    # since the preprocessing and tomography slices and, with nothing to
-    # read, exit 1
-    assert cli.main(["sva"], device="cpu") == 2
-    assert cli.main(["spr"], device="cpu") == 1
-    assert cli.main(["tomo"], device="cpu") == 1
+    # a mode the port does not have exits 2; spr, tomo, sva and csp are
+    # ported since the preprocessing, tomography and subtomogram slices
+    # and, with nothing to read, exit 1
+    assert cli.main(["heterogeneity"], device="cpu") == 2
+    for mode in ("spr", "tomo", "sva", "csp"):
+        assert cli.main([mode], device="cpu") == 1
     for engine in ("frm", "gather"):
         # one project directory per engine: a refine run resumes after
         # the iterations it finds in maps/

@@ -116,6 +116,26 @@ and the subtomogram phases:
              run's poses and map, then the FRM protocol on the polished
              stack: FSC(0.143) within a shell of the unpolished run's.
 
+and the learned models (pyp_tpu_torch/models, torch.nn; each phase
+reads shift_scored_match's launches, 0):
+
+  heterogeneity  (after classify3d) `heterogeneity` at the schema's
+             defaults on classify3d's two states x 2,048 at consensus
+             poses: PC1 purity >= 0.8, each PC1 end closer to its own
+             state; (after sva) the tilt branch on `csp -csp_save_stacks`
+             of the csp start: latents and volumes written, read;
+  models_spr  (after extract) `sprtrain` on two of the spr bundles, `spr
+             -detect_method nn` on the third (recall read beside the JAX
+             package's 0.7), `spr -denoise_spr n2n` on a fresh project
+             (the spr recall and precision bars) then `-prism_enable`
+             (scores written), `prism` with a blank micrograph (scored
+             below the median);
+  models_tomo  (after tomo_options) from copies of tomo's bundle: n2n
+             (finite; slab cc read beside the raw one's), wedge (the
+             measured sector unchanged within 1e-2), `-tomo_vir_method nn`
+             (the surface bars of (c)), `tomotrain`, `mine` (every grid
+             patch in one cluster).
+
     python3 chip_smoke.py
 
 Prints one JSON line per phase, the card's name and power limit, a
@@ -620,7 +640,9 @@ def _cli_json(argv, cwd):
     if rc != 0:
         raise RuntimeError(f"cli.main({argv}) returned {rc}:\n{buf.getvalue()}")
     text = buf.getvalue()
-    return json.loads(text[text.index("{"):]), wall
+    # the first JSON object printed (`spr -prism_enable` prints prism's,
+    # then the merge's)
+    return json.JSONDecoder().raw_decode(text[text.index("{"):])[0], wall
 
 
 LOCRES_MAX_A = 20.0
@@ -1268,7 +1290,8 @@ def phase_spr_refine(project, volume, root):
 
 def phase_preprocess(volume):
     """The preprocessing phases on one movie set in a temporary directory,
-    then polishing. Returns the kernel launches of the `polish` run."""
+    the SPA side of the models, then polishing. Returns the kernel
+    launches of the `polish` and models runs."""
     with tempfile.TemporaryDirectory() as root:
         movies_dir = os.path.join(root, "movies")
         project = os.path.join(root, "project")
@@ -1276,8 +1299,10 @@ def phase_preprocess(volume):
         phase_spr(movies_dir, project, truth)
         phase_spr_layers(movies_dir)
         phase_extract(project, truth)
+        models = phase_models_spr(project, movies_dir, truth, root)
         refined, fsc = phase_spr_refine(project, volume, root)
-        return phase_polish(project, refined, movies_dir, fsc, volume)
+        return {"polish": phase_polish(project, refined, movies_dir, fsc,
+                                       volume), "models_spr": models}
 
 # ---------------------------------------------------------------------------
 # tomography: tools/e2e_tomo's series through cli.main(["tomo", ...])
@@ -1539,29 +1564,13 @@ def phase_tomo_options(data_dir, root, tt, base):
                                    "-tomo_vir_rad", "300",
                                    "-tomo_vir_search_band", "0.5",
                                    "-tomo_vir_detect_max", "16"])
-    meta = _tomo_meta(proj)
-    vir, picks = meta["vir"], meta["box"][:, :3]
-    planted = tt.voxels([v["centre"] for v in truth["virions"]], shape)
-    radii = np.array([v["radius"] for v in truth["virions"]]) / TOMO_REC_PIXEL
-    owner = np.argmin(np.linalg.norm(picks[:, None] - planted[None], axis=-1), 1)
-    seed_err, centre_err, radius_err = [], [], []
-    for i, (c, r) in enumerate(zip(planted, radii)):
-        d = np.linalg.norm(vir[:, :3] - c, axis=1)
-        j = int(np.argmin(d))
-        near = picks[(owner == i) & (np.abs(np.linalg.norm(picks - c, axis=1) - r)
-                                     < 0.5 * r)]
-        seed_err.append(float(d[j]))
-        centre_err.append(float(np.linalg.norm(near.mean(0) - c))
-                          if len(near) else float("inf"))
-        radius_err.append(float(abs(vir[j, 3] / r - 1.0)))
+    vrow, ok = _virion_errors(_tomo_meta(proj), truth, tt, shape)
     emit({"phase": "tomo_options", "option": "c_surface", "seconds": wall,
-          "stages_s": st, "virions_found": int(len(vir)),
-          "surface_picks": int(len(picks)), "seed_centre_err_vox": seed_err,
-          "surface_centre_err_vox": centre_err, "radius_rel_err": radius_err})
-    if not (max(centre_err) <= TOMO_VIRION_CENTRE_BAR_VOX
-            and max(radius_err) <= TOMO_VIRION_RADIUS_BAR_REL):
-        failures.append(f"c_surface: centre errors {centre_err}, radius "
-                        f"errors {radius_err}")
+          "stages_s": st, **vrow})
+    if not ok:
+        failures.append(f"c_surface: centre errors "
+                        f"{vrow['surface_centre_err_vox']}, radius errors "
+                        f"{vrow['radius_rel_err']}")
 
     # (d) template matching against the planted particle at 30°
     ref = os.path.join(root, "particle.mrc")
@@ -2253,20 +2262,492 @@ def phase_polish(project, refined, movies_dir, fsc_unpolished, volume):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the learned models (pyp_tpu_torch/models): torch.nn on the card, no
+# hand-written kernel; each phase reads shift_scored_match's launches (0)
+# ---------------------------------------------------------------------------
+
+# the JAX package's own bar (tests/test_models.py:45), read without
+# failing: the JAX picker misses it on tools/e2e_spr micrographs too
+# (tools/rehearse_models_jax.py nn 2048: recall 0.61; ROADMAP Queue 3)
+NN_RECALL_BAR = 0.7
+MEASURED_SECTOR_BAR = 1e-2     # of max|F| of the slice (tests/test_models.py:121)
+MODEL_STEPS = dict(picker=300, membrane=400, miner=300, quality=300,
+                   heterogeneity=500)   # the schema's defaults
+
+
+class _Window:
+    """Counts shift_scored_match's launches, the device memory peak and
+    the wall of a phase; `row()` reads them."""
+
+    def __enter__(self):
+        import torch
+
+        from pyp_tpu_torch.ops import kernels
+
+        kernels.shift_scored_match.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def row(self):
+        import torch
+
+        from pyp_tpu_torch.ops import kernels
+
+        torch.cuda.synchronize()
+        return {"seconds": time.perf_counter() - self.t0,
+                "max_memory_allocated_GiB":
+                    torch.cuda.max_memory_allocated() / 2**30,
+                "launches": kernels.shift_scored_match.launches}
+
+
+def _copy_bundles(project, dst, names, drop=()):
+    """A project holding the bundles `names` of `project` (their entries
+    `drop` removed) and its parameter file."""
+    import shutil
+
+    os.makedirs(dst)
+    for f in os.listdir(project):
+        if f.startswith(".pyp_tpu_config"):
+            shutil.copy(os.path.join(project, f), dst)
+    for name in names:
+        shutil.copy(os.path.join(project, f"{name}.meta.json"), dst)
+        with np.load(os.path.join(project, f"{name}.meta.npz")) as z:
+            arrays = {k: z[k] for k in z.files if k not in drop}
+        np.savez_compressed(os.path.join(dst, f"{name}.meta.npz"), **arrays)
+    return dst
+
+
+def _stage(rows, name):
+    return sum(sec for n, sec in rows if n == name)
+
+
+def phase_models_spr(project, movies_dir, truth, root):
+    """The SPA side of the models on the `spr` phase's project (three 40 x
+    4096² movies): `sprtrain` on two bundles at the schema's defaults;
+    `spr -detect_method nn` on the third movie (picks made; the recall
+    within one particle radius read beside NN_RECALL_BAR, precision
+    read); `spr -denoise_spr n2n`
+    on a fresh project (the `spr` phase's recall and precision bars on
+    the denoised picks), then `-prism_enable` on it (scores written);
+    `prism` on the three bundles and a blank micrograph (every score
+    finite, the blank's below the others' median). Returns the kernel
+    launches."""
+    import shutil
+
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.models import io as mio
+    from pyp_tpu_torch.models.unet import UNet2D
+    from pyp_tpu_torch.pipeline import spr as spr_pipe
+    from pyp_tpu_torch.tools import e2e_spr
+
+    names = sorted(truth)
+    failures, launches = [], 0
+
+    # sprtrain on the first two micrographs' picks
+    train = _copy_bundles(project, os.path.join(root, "ms_train"), names[:2])
+    with _Window() as w, _StageTimes() as st:
+        out, wall = _cli_json(["sprtrain"], train)
+    model = os.path.join(train, "picker_model.npz")
+    mio.load_params(model, UNet2D((8, 16, 32)).state_dict())
+    t_train = _stage(st.rows, "picker training")
+    row = {"phase": "models_spr", "step": "sprtrain", **w.row(),
+           "micrographs": out["micrographs"], "particles": out["particles"],
+           "training_s": t_train,
+           "training_steps_per_s": MODEL_STEPS["picker"] / t_train}
+    launches += row["launches"]
+    emit(row)
+
+    # the learned picker on the third micrograph
+    nn = _copy_bundles(project, os.path.join(root, "ms_nn"), names[2:],
+                       drop=("box",))
+    shutil.copy(model, nn)
+    with _Window() as w, _StageTimes() as st:
+        _cli_json(["spr", "-data_path",
+                   os.path.join(movies_dir, f"{names[2]}.mrc"),
+                   "-detect_method", "nn"], nn)
+    meta = ItemMetadata(names[2], nn).load()
+    recall, precision = e2e_spr.pick_recall_precision(
+        meta["box"][:, :2], truth[names[2]]["centres"],
+        e2e_spr.PARTICLE_RADIUS_A)
+    ny, nx = meta["average"].shape
+    tiles = ((ny - 128) // 64 + 1) * ((nx - 128) // 64 + 1)
+    t_pick = _stage(st.rows, "NN particle picking")
+    row = {"phase": "models_spr", "step": "detect_nn", **w.row(),
+           "picks": int(len(meta["box"])),
+           "planted": len(truth[names[2]]["centres"]), "recall": recall,
+           "precision": precision, "recall_bar_met": recall >= NN_RECALL_BAR,
+           "picking_s": t_pick, "inference_tiles": tiles,
+           "inference_tiles_per_s": tiles / t_pick}
+    launches += row["launches"]
+    emit(row)
+    if not len(meta["box"]):
+        failures.append("detect_nn: no picks")
+
+    # the noise2noise micrograph denoiser on a fresh project, then
+    # -prism_enable on it
+    n2n = os.path.join(root, "ms_n2n")
+    os.makedirs(n2n)
+    spr_pipe._spr_denoiser_cache.clear()
+    argv = e2e_spr.SPR_ARGS + ["-data_path",
+                               os.path.join(movies_dir, "movie_*.mrc"),
+                               "-denoise_spr", "n2n"]
+    with _Window() as w, _StageTimes() as st:
+        _cli_json(argv, n2n)
+    row = {"phase": "models_spr", "step": "denoise_n2n", **w.row(),
+           "denoise_s": [sec for n, sec in st.rows
+                         if n == "micrograph denoise"]}
+    for name in names:
+        meta = ItemMetadata(name, n2n).load()
+        r, p = e2e_spr.pick_recall_precision(
+            meta["box"][:, :2], truth[name]["centres"],
+            e2e_spr.PARTICLE_RADIUS_A / 2)
+        row[f"{name}_recall"], row[f"{name}_precision"] = r, p
+        if not (r >= PICK_RECALL_BAR and p >= PICK_PRECISION_BAR
+                and meta.is_done("denoised")):
+            failures.append(f"denoise_n2n {name}: recall {r:.3f}, "
+                            f"precision {p:.3f}")
+    with _Window() as w2, _StageTimes() as st:
+        _cli_json(argv + ["-prism_enable"], n2n)
+    scores = [ItemMetadata(n, n2n).load().scalars.get("prism_score")
+              for n in names]
+    row.update(prism_enable=w2.row(), prism_enable_scores=scores)
+    launches += row["launches"] + row["prism_enable"]["launches"]
+    emit(row)
+    if not all(s is not None and np.isfinite(s) for s in scores):
+        failures.append(f"prism_enable wrote {scores}")
+    spr_pipe._spr_denoiser_cache.clear()
+
+    # prism on the three micrographs and a blank one
+    pr = _copy_bundles(project, os.path.join(root, "ms_prism"), names)
+    avg = ItemMetadata(names[0], project).load()["average"]
+    blank = ItemMetadata("blank", pr)
+    blank["average"] = (avg.mean() + avg.std() * np.random.RandomState(9)
+                        .randn(*avg.shape)).astype(np.float32)
+    blank.save()
+    with _Window() as w, _StageTimes() as st:
+        out, _ = _cli_json(["prism"], pr)
+    scores = {n: ItemMetadata(n, pr).load().scalars["prism_score"]
+              for n in names + ["blank"]}
+    t_q = _stage(st.rows, "quality training")
+    row = {"phase": "models_spr", "step": "prism", **w.row(),
+           "items": out["items"], "scores": scores, "training_s": t_q,
+           "training_steps_per_s": MODEL_STEPS["quality"] / t_q}
+    launches += row["launches"]
+    emit(row)
+    others = [scores[n] for n in names]
+    if not (all(np.isfinite(list(scores.values())))
+            and scores["blank"] < np.median(others)):
+        failures.append(f"prism: scores {scores}")
+    if launches:
+        failures.append(f"models_spr launched shift_scored_match {launches}")
+    if failures:
+        raise RuntimeError("models_spr bars failed: " + "; ".join(failures))
+    return launches
+
+
+def _virion_errors(meta, truth, tt, shape):
+    """Surface picking read against the planted virions: the centroid of
+    the refined surface's picks nearest each virion and the `vir` row's
+    mean refined radius (the seed's integer centre reported beside)."""
+    vir, picks = meta["vir"], meta["box"][:, :3]
+    planted = tt.voxels([v["centre"] for v in truth["virions"]], shape)
+    radii = np.array([v["radius"] for v in truth["virions"]]) / TOMO_REC_PIXEL
+    owner = np.argmin(np.linalg.norm(picks[:, None] - planted[None], axis=-1), 1)
+    seed_err, centre_err, radius_err = [], [], []
+    for i, (c, r) in enumerate(zip(planted, radii)):
+        d = np.linalg.norm(vir[:, :3] - c, axis=1)
+        j = int(np.argmin(d))
+        near = picks[(owner == i) & (np.abs(np.linalg.norm(picks - c, axis=1) - r)
+                                     < 0.5 * r)]
+        seed_err.append(float(d[j]))
+        centre_err.append(float(np.linalg.norm(near.mean(0) - c))
+                          if len(near) else float("inf"))
+        radius_err.append(float(abs(vir[j, 3] / r - 1.0)))
+    row = {"virions_found": int(len(vir)), "surface_picks": int(len(picks)),
+           "seed_centre_err_vox": seed_err,
+           "surface_centre_err_vox": centre_err, "radius_rel_err": radius_err}
+    ok = (max(centre_err) <= TOMO_VIRION_CENTRE_BAR_VOX
+          and max(radius_err) <= TOMO_VIRION_RADIUS_BAR_REL)
+    return row, ok
+
+
+def phase_models_tomo(root, tt, base):
+    """The tomography side of the models on copies of the `tomo` phase's
+    bundle (512² x 256 at rec bin 8): -denoise_method n2n (finite; the
+    denoised tomogram's slab cc with the truth beside the raw one's, read
+    without a bar: the JAX algorithm lowers it too at 60 steps), wedge
+    (finite, every (z, x) slice's measured sector unchanged within
+    MEASURED_SECTOR_BAR), -tomo_vir_method nn (the surface bars of
+    tomo_options (c)), `tomotrain` on the tomogram and its picks (the
+    model written), `mine` at the defaults (every grid patch in one
+    cluster, the .spk files and gallery written, the best cluster's share
+    of planted particles read). Returns the kernel launches."""
+    from pyp_tpu_torch.io import boxfiles, mrc
+    from pyp_tpu_torch.models import io as mio
+    from pyp_tpu_torch.models.unet import UNet2D
+    from pyp_tpu_torch.tools import e2e_tomo
+
+    truth = tt.truth
+    failures, launches = [], 0
+
+    def run(tag, argv, drop=("box",)):
+        proj = _fork(base, os.path.join(root, tag), drop)
+        with _Window() as w, _StageTimes() as st:
+            _cli_json(argv, proj)
+        return proj, w.row(), st.rows
+
+    def slab(vol):
+        import torch
+
+        ref = tt.tomogram_truth(vol.shape)
+        return e2e_tomo.slab_cc(torch.as_tensor(vol, device=ref.device), ref,
+                                tt.offset, half=TOMO_SLAB_HALF)
+
+    # (h) noise2noise on the even/odd-tilt halves
+    proj, w, st = run("mt_n2n", ["tomo", "-denoise_method", "n2n",
+                                 "-tomo_rec_force"], drop=())
+    rec = mrc.read(os.path.join(proj, "ts01.rec.mrc")).astype(np.float32)
+    den = mrc.read(os.path.join(proj, "ts01.den.mrc")).astype(np.float32)
+    row = {"phase": "models_tomo", "step": "denoise_n2n", **w,
+           "stages_s": dict(st), "tomogram_cc": slab(rec),
+           "denoised_cc": slab(den), "finite": bool(np.isfinite(den).all())}
+    # read without a bar: at the schema's 60 steps the JAX package's n2n
+    # lowers the slab cc too (tools/rehearse_models_jax.py n2n; ROADMAP
+    # Queue 3)
+    row["denoised_cc_not_below"] = row["denoised_cc"] >= row["tomogram_cc"]
+    launches += row["launches"]
+    emit(row)
+    if not row["finite"]:
+        failures.append("denoise_n2n: a non-finite denoised tomogram")
+
+    # (i) the missing-wedge restorer
+    proj, w, st = run("mt_wedge", ["tomo", "-denoise_method", "wedge",
+                                   "-tomo_rec_force"], drop=())
+    rec = mrc.read(os.path.join(proj, "ts01.rec.mrc")).astype(np.float32)
+    den = mrc.read(os.path.join(proj, "ts01.den.mrc")).astype(np.float32)
+    # the sector the tilts measured (tests/test_models.py:121 computes it
+    # so): frequencies within tilt_max of the kx axis
+    kz = np.fft.fftfreq(rec.shape[0])[:, None]
+    kx = np.fft.rfftfreq(rec.shape[2])[None, :]
+    measured = (np.degrees(np.arctan2(np.abs(kz), np.abs(kx)))
+                <= float(np.abs(truth["angles"]).max()))
+    errs = []
+    for y in np.linspace(0, rec.shape[1] - 1, 16).astype(int):
+        f_in, f_out = np.fft.rfft2(rec[:, y, :]), np.fft.rfft2(den[:, y, :])
+        errs.append(float(np.abs(f_out - f_in)[measured].max()
+                          / np.abs(f_in).max()))
+    row = {"phase": "models_tomo", "step": "denoise_wedge", **w,
+           "stages_s": dict(st), "finite": bool(np.isfinite(den).all()),
+           "measured_sector_rel_err_max": max(errs),
+           "wedge_sector_gain": float(np.abs(np.fft.rfft2(
+               den[:, rec.shape[1] // 2, :]))[~measured].sum()
+               / max(np.abs(np.fft.rfft2(rec[:, rec.shape[1] // 2, :]))
+                     [~measured].sum(), 1e-30))}
+    launches += row["launches"]
+    emit(row)
+    if not (row["finite"] and max(errs) <= MEASURED_SECTOR_BAR):
+        failures.append(f"denoise_wedge: measured sector changed by "
+                        f"{max(errs):.3g}")
+
+    # (j) virions from the membrane network (trained, 400 steps, patch 96)
+    proj, w, st = run("mt_vir_nn", ["tomo", "-tomo_spk_method", "surface",
+                                    "-tomo_vir_method", "nn",
+                                    "-tomo_vir_rad", "300",
+                                    "-tomo_vir_search_band", "0.5",
+                                    "-tomo_vir_detect_max", "16"])
+    meta = _tomo_meta(proj)
+    shape = mrc.read_header(os.path.join(proj, "ts01.rec.mrc")).shape
+    vrow, ok = _virion_errors(meta, truth, tt, shape)
+    t_m = _stage(st, "membrane training")
+    row = {"phase": "models_tomo", "step": "vir_nn", **w, "stages_s": dict(st),
+           "membrane_training_steps_per_s": MODEL_STEPS["membrane"] / t_m,
+           "model_written": os.path.exists(os.path.join(
+               proj, "membrane_model.npz")), **vrow}
+    launches += row["launches"]
+    emit(row)
+    if not (ok and row["model_written"]):
+        failures.append(f"vir_nn: centre errors {vrow['surface_centre_err_vox']},"
+                        f" radius errors {vrow['radius_rel_err']}")
+
+    # (k) tomotrain on the tomogram and its picks
+    proj = _fork(base, os.path.join(root, "mt_train"), drop=())
+    boxfiles.write_spk(_tomo_meta(proj)["box"][:, :3],
+                       os.path.join(proj, "ts01.spk"))
+    with _Window() as w, _StageTimes() as st:
+        out, _ = _cli_json(["tomotrain"], proj)
+    mio.load_params(os.path.join(proj, "picker_model_tomo.npz"),
+                    UNet2D((8, 16, 32)).state_dict())
+    t_p = _stage(st.rows, "picker training")
+    row = {"phase": "models_tomo", "step": "tomotrain", **w.row(),
+           "slices": out["slices"], "training_s": t_p,
+           "training_steps_per_s": MODEL_STEPS["picker"] / t_p}
+    launches += row["launches"]
+    emit(row)
+
+    # (l) mining at the defaults (patch 16, stride 8, 8 clusters)
+    proj = _fork(base, os.path.join(root, "mt_mine"), drop=())
+    with _Window() as w, _StageTimes() as st:
+        out, _ = _cli_json(["mine"], proj)
+    gallery = json.load(open(os.path.join(proj, "mine_gallery.json")))["ts01"]
+    grid = int(np.prod([(d - 16) // 8 + 1 for d in shape]))
+    planted = tt.voxels(truth["particles"], shape)
+    rad = truth["particle_radius"] / TOMO_REC_PIXEL
+    shares = []
+    for c in gallery:
+        path = os.path.join(proj, f"ts01_cluster{c['cluster']:02d}.spk")
+        if not c["size"]:
+            continue
+        coords = np.asarray(boxfiles.read_spk(path))[:, :3]
+        d = np.linalg.norm(coords[:, None] - planted[None], axis=-1)
+        shares.append((float((d.min(1) <= rad).mean()),
+                       float((d.min(0) <= rad).mean()), c["cluster"],
+                       int(len(coords))))
+    best = max(shares)
+    t_t, t_mine = _stage(st.rows, "miner training"), _stage(st.rows, "mining")
+    row = {"phase": "models_tomo", "step": "mine", **w.row(),
+           "clusters": out["clusters"], "patches": grid,
+           "cluster_sizes": [c["size"] for c in gallery],
+           "best_cluster": best[2], "best_cluster_size": best[3],
+           "best_cluster_share_on_particles": best[0],
+           "best_cluster_particles_covered": best[1],
+           "training_steps_per_s": MODEL_STEPS["miner"] / t_t,
+           "mining_s": t_mine, "mining_patches_per_s": grid / t_mine}
+    launches += row["launches"]
+    emit(row)
+    if not (sum(row["cluster_sizes"]) == grid
+            and all(os.path.exists(os.path.join(
+                proj, f"ts01_cluster{c['cluster']:02d}.spk"))
+                for c in gallery if c["size"])):
+        failures.append(f"mine: cluster sizes {row['cluster_sizes']} of "
+                        f"{grid} patches")
+    if launches:
+        failures.append(f"models_tomo launched shift_scored_match {launches}")
+    if failures:
+        raise RuntimeError("models_tomo bars failed: " + "; ".join(failures))
+    return launches
+
+
+def phase_heterogeneity():
+    """`heterogeneity` (the SPA branch) at the schema's defaults (latent 8,
+    500 steps, batch 32, 60-8 Å) on classify3d's two states x 2,048 at
+    consensus poses: the latents' PC1 split at its median separates the
+    states (purity >= PURITY_BAR, tests/test_heterogeneity.py:40), and
+    each end of PC1 decodes closer to its own state. Returns the kernel
+    launches."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.models import heterogeneity as het
+    from pyp_tpu_torch.tools import e2e_class
+
+    data, synth_s = _sync_s(lambda: e2e_class.two_state_dataset(
+        device="cuda"))
+    vol_a, vol_b = data["volumes"]
+    labels = data["labels"]
+    with tempfile.TemporaryDirectory() as work:
+        e2e_class.write_posed_project(work, data, vol_a)
+        with _Window() as w, _StageTimes() as st:
+            out, _ = _cli_json(["heterogeneity", "-scope_pixel", "1.0"], work)
+        latents = np.load(os.path.join(work, "heterogeneity_latents.npz"))[
+            "latents"]
+        ends = [mrc.read(os.path.join(work, f"het_volume_{i:02d}.mrc"))
+                for i in (0, out["volumes"] - 1)]
+    pc, _, _ = het.latent_pca(latents, 1)
+    low = pc[:, 0] <= np.median(pc[:, 0])
+    purity = e2e_class.purity(low.astype(int), labels)
+    # the state most particles of the low end belong to is its own
+    own = [int(np.bincount(labels[low], minlength=2).argmax())]
+    own.append(1 - own[0])
+    ccs = [[e2e_class.cc(v, s) for s in (vol_a, vol_b)] for v in ends]
+    closer = all(ccs[i][own[i]] > ccs[i][1 - own[i]] for i in (0, 1))
+    t_h = _stage(st.rows, "heterogeneity training")
+    row = {"phase": "heterogeneity", "branch": "spa", **w.row(),
+           "synthesize_s": synth_s, "particles": out["particles"],
+           "pc1_explained": out["pc1_explained"], "purity": purity,
+           "end_vs_state_cc": ccs, "ends_closer_to_own_state": closer,
+           "training_s": t_h,
+           "training_steps_per_s": MODEL_STEPS["heterogeneity"] / t_h}
+    emit(row)
+    if not (purity >= PURITY_BAR and closer and not row["launches"]):
+        raise RuntimeError(f"heterogeneity bars failed: purity {purity:.3f},"
+                           f" end ccs {ccs}, launches {row['launches']}")
+    return row["launches"]
+
+
+def phase_heterogeneity_tilt(data_dir, root, tt, base):
+    """`csp -csp_save_stacks` on the csp phase's start (a copy of its
+    project), then `heterogeneity` on the exported tilt stacks (the
+    tomoDRGN branch): latents and volumes written and finite, read
+    without a bar. Returns the kernel launches."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.tools import e2e_csp
+
+    truth = tt.truth
+    pixel, box, band = truth["pixel"], e2e_csp.CSP_BOX, e2e_csp.CSP_BAND
+    _, keep, idx = _matched_picks(base, truth, 2048)
+    rotations = e2e_csp.planted_rotations(truth)[idx]
+    start = e2e_csp.start_eulers(rotations, e2e_csp.START_ERROR_DEG, seed=1)
+    ref = e2e_csp.reference(truth, box, pixel)
+    proj = _csp_project(base, root, "het_tilt", truth, start, box, ref,
+                        pixel, keep)
+    with _Window() as w:
+        _cli_json(["csp", "-scope_pixel", str(pixel), "-scope_voltage",
+                   "300", "-scope_cs", "2.7", "-scope_wgh", "0.07",
+                   "-csp_box", str(box), "-csp_rlref", str(band[0]),
+                   "-csp_rhref", str(band[1]), "-csp_transreg", "0",
+                   "-tomo_rec_thickness", "2048", "-csp_parfile", "start",
+                   "-no_plot_per_item", "-csp_save_stacks", "-data_path",
+                   os.path.join(data_dir, "ts01.mrc")], proj)
+    csp_row = w.row()
+    with np.load(os.path.join(proj, "stacks", "ts01_stack.npz")) as z:
+        stacks_shape = list(z["stacks"].shape)
+    with _Window() as w, _StageTimes() as st:
+        out, _ = _cli_json(["heterogeneity"], proj)
+    latents = np.load(os.path.join(proj, "heterogeneity_latents.npz"))[
+        "latents"]
+    vols = [mrc.read(os.path.join(proj, f"het_volume_{i:02d}.mrc"))
+            for i in range(out["volumes"])]
+    t_h = _stage(st.rows, "heterogeneity training")
+    row = {"phase": "heterogeneity", "branch": "tilt", **w.row(),
+           "csp_save_stacks": csp_row, "stacks_shape": stacks_shape,
+           "particles": out["particles"], "tilts": out["tilts"],
+           "latents_shape": list(latents.shape),
+           "finite": bool(np.isfinite(latents).all()
+                          and all(np.isfinite(v).all() for v in vols)),
+           "pc1_explained": out["pc1_explained"], "training_s": t_h,
+           "training_steps_per_s": MODEL_STEPS["heterogeneity"] / t_h}
+    emit(row)
+    launches = row["launches"] + csp_row["launches"]
+    if not (row["finite"] and latents.shape[0] == stacks_shape[0]):
+        raise RuntimeError(f"heterogeneity (tilt): {row}")
+    if launches:
+        raise RuntimeError(f"heterogeneity (tilt) launched "
+                           f"shift_scored_match {launches} times")
+    return launches
+
+
 def phase_tomography():
     """The tomography phases on one synthetic series in a temporary
-    directory, then CSP and SVA on the `tomo` run's project. Returns the
-    kernel launches of the `tomo`, `csp` and `sva` runs."""
+    directory (with the tomography side of the models), then CSP, SVA and
+    the tilt branch of heterogeneity on their own project. Returns the
+    kernel launches of the `tomo`, models, `csp`, `sva` and heterogeneity
+    runs."""
     with tempfile.TemporaryDirectory() as root:
         data_dir = os.path.join(root, "data")
         tt = phase_tomo_synthesize(data_dir)
         launches, base = phase_tomo(data_dir, root, tt)
         phase_tomo_options(data_dir, root, tt, base)
+        models = phase_models_tomo(root, tt, base)
         phase_tomo_mdoc(root, tt)
         phase_tomo_layers(data_dir, tt)
         phase_tomo_thick(root)
-        csp, sva = phase_subtomo(root)
-    return {"tomo": launches, "csp": csp, "sva": sva}
+        csp, sva, het = phase_subtomo(root)
+    return {"tomo": launches, "models_tomo": models, "csp": csp, "sva": sva,
+            "heterogeneity_tilt": het}
 
 
 def phase_subtomo(root):
@@ -2275,7 +2756,8 @@ def phase_subtomo(root):
     change with its orientation), synthesized and run through `tomo` at
     the same flags but template picking, then `csp` and `sva` on copies
     of that project.
-    Returns the kernel launches of the csp and sva runs."""
+    Returns the kernel launches of the csp, sva and heterogeneity (tilt)
+    runs."""
     from pyp_tpu_torch.io import mrc
     from pyp_tpu_torch.tools import e2e_tomo
 
@@ -2304,7 +2786,8 @@ def phase_subtomo(root):
                                           tt.voxels(truth["particles"], shape),
                                           rad)}
     emit(row)
-    return phase_csp(data_dir, root, tt, base), phase_sva(root, tt, base)
+    return (phase_csp(data_dir, root, tt, base), phase_sva(root, tt, base),
+            phase_heterogeneity_tilt(data_dir, root, tt, base))
 
 
 
@@ -2330,9 +2813,11 @@ def main():
     del abinit_data
     gather2d = phase_classify2d()
     phase_classify3d()
-    polish = phase_preprocess(volume)
+    het = phase_heterogeneity()
+    preprocess = phase_preprocess(volume)
     csp_layers = phase_csp_layers()
     tomo_launches = phase_tomography()
+    het += tomo_launches.pop("heterogeneity_tilt")
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "shift_scored_match", "route": "cuda",
@@ -2340,7 +2825,8 @@ def main():
         "replaces": "pyp_tpu/ops/pallas_kernels.py:80",
         "launches": {"slice": launches, "abinit_classic": classic,
                      "classify2d_gather": gather2d, **tomo_launches,
-                     "csp_layers": csp_layers, "polish": polish},
+                     "csp_layers": csp_layers, **preprocess,
+                     "heterogeneity": het},
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "operations", "library_ms": k["library_ms"],

@@ -1,5 +1,6 @@
-"""Saved micrograph selections — the port's own copy of `load_selection`
-(pyp_tpu/analysis/filters.py), which `-filter_sel` resolves through."""
+"""Saved micrograph selections and the project's bundles — the port's own
+copies of `load_selection`, which `-filter_sel` resolves through, and
+`discover_bundles`, which `prism` reads (pyp_tpu/analysis/filters.py)."""
 
 from __future__ import annotations
 
@@ -19,3 +20,9 @@ def load_selection(path_or_name, work_dir=".", dataset: str = "") -> set:
                 f"(also tried {cand})")
         p = cand
     return set(json.loads(p.read_text())["keep"])
+
+
+def discover_bundles(work_dir=".") -> list[str]:
+    """Item names with metadata bundles under a project dir."""
+    return sorted(p.name[: -len(".meta.npz")]
+                  for p in Path(work_dir).glob("*.meta.npz"))

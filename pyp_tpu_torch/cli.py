@@ -1,7 +1,7 @@
 """Command-line entry point of the port: the `spr`, `tomo`, `extract`,
 `gain`, `refine`, `classify2d`, `classify3d`, `clean`, `kselection`,
-`postprocess`, `fsc`, `mask`, `csp`, `polish` and `sva` modes on a CUDA
-device.
+`postprocess`, `fsc`, `mask`, `csp`, `polish`, `sva`, `sprtrain`,
+`tomotrain`, `mine`, `prism` and `heterogeneity` modes on a CUDA device.
 
     python -m pyp_tpu_torch.cli spr -data_path 'movies/*.mrc' -scope_pixel 1.0 ...
     python -m pyp_tpu_torch.cli tomo -data_path 'series/*.mrc' -scope_pixel 1.0 ...
@@ -19,6 +19,11 @@ device.
     python -m pyp_tpu_torch.cli csp -data_path 'series/*.mrc' -csp_box 64 ...
     python -m pyp_tpu_torch.cli polish -data_path 'movies/*.mrc' ...
     python -m pyp_tpu_torch.cli sva -sva_box 48 [-sva_ref ref.mrc] ...
+    python -m pyp_tpu_torch.cli sprtrain -train_steps 300 ...
+    python -m pyp_tpu_torch.cli tomotrain -tomo_spk_rad 100 ...
+    python -m pyp_tpu_torch.cli mine -mine_clusters 8 ...
+    python -m pyp_tpu_torch.cli prism -prism_steps 300 ...
+    python -m pyp_tpu_torch.cli heterogeneity [-het_eval] ...
 
 `spr` preprocesses every movie `-data_path` matches (frame alignment, CTF
 estimation, picking) into one `<name>.meta.npz` bundle each, resuming
@@ -50,11 +55,18 @@ average's maps under maps/, the refined xf/tlt/csp_scores into the
 bundles and an ArtiaX star per series; `polish` refines per-particle
 frame trajectories of the SPA movies against the newest map and rewrites
 stack.mrc; `sva` aligns and averages subvolumes at the 3D picks of every
-*.rec.mrc. Each writes the files the JAX package's mode writes. Every other mode is not ported yet and exits
-non-zero; SLURM submission, the learned picker (`-detect_method nn`), the
-micrograph denoiser (`-denoise_spr n2n`), `-prism_enable`, the trained
-tomogram denoisers (`-denoise_method n2n|wedge`) and the membrane network
-(`-tomo_vir_method nn`) raise NotImplementedError by name.
+*.rec.mrc. `sprtrain` trains the learned picker on the project's picks
+(picker_model.npz, which `spr -detect_method nn` reads) and `tomotrain`
+on the tomograms' .spk picks (picker_model_tomo.npz); `mine` clusters a
+contrastive embedding of every tomogram's dense grid (<name>_clusterKK.spk
+and mine_gallery.json); `prism` scores every micrograph's typicality into
+its bundle (prism_score, prism_embeddings.npz; `spr -prism_enable` runs
+it after the merge); `heterogeneity` trains the latent model on stack.mrc
+at its refined poses, or on the tilt stacks `csp -csp_save_stacks`
+writes, and decodes volumes along a principal direction (het_model.npz,
+heterogeneity_latents.npz, het_volume_XX.mrc). Each writes the files the
+JAX package's mode writes. Every other mode is not ported yet and exits
+non-zero; SLURM submission raises NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -69,7 +81,7 @@ import numpy as np
 
 from pyp_tpu_torch.config import params as cfg
 from pyp_tpu_torch.config.blocks import apply_reference_aliases
-from pyp_tpu_torch.utils import get_logger
+from pyp_tpu_torch.utils import Timer, get_logger
 
 logger = get_logger("cli")
 
@@ -176,10 +188,6 @@ def mode_spr(argv, device="cuda"):
         raise NotImplementedError(
             "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
             "spr is not ported; run it on the local executor")
-    if params.get("prism_enable"):
-        raise NotImplementedError(
-            "prism_enable (micrograph quality scoring) is not ported")
-    spr.check_ported(params)
     dev = resolve_device(device)
 
     graph = JobGraph("spr")
@@ -195,6 +203,11 @@ def mode_spr(argv, device="cuda"):
     LocalExecutor(max_workers=int(params.get("slurm_local_tasks") or 0)
                   or int(params.get("slurm_tasks") or 1)).run(graph)
     merge = graph.jobs["sprswarm.merge"]
+    if merge.status == "done" and params.get("prism_enable"):
+        # prism tab enable card: quality assessment runs as part of
+        # preprocessing (scores land in metadata for the filter mode)
+        logger.info("prism_enable: scoring micrograph quality")
+        mode_prism([], device=dev)
     print(json.dumps(merge.result, indent=1, default=str))
     return 0 if merge.status == "done" else 1
 
@@ -221,7 +234,6 @@ def mode_tomo(argv, device="cuda"):
         raise NotImplementedError(
             "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
             "tomo is not ported; run it on the local executor")
-    tomo_pipe.check_ported(params)
     dev = resolve_device(device)
 
     def load_item(item):
@@ -961,7 +973,9 @@ def _export_tilt_stacks(name, tilts, refined, meta, params, device):
     ctf[:, :, 0] = ctf[:, :, 1] = df.T
     out = Path("stacks")
     out.mkdir(exist_ok=True)
-    np.savez_compressed(
+    # uncompressed: the windows are noise to zlib, which took ~a minute
+    # for 60 particles x 41 tilts at box 256
+    np.savez(
         out / f"{name}_stack.npz", stacks=stacks.astype(np.float32),
         poses=poses, ctf=ctf, weights=np.ones((P, T), dtype=np.float32))
     logger.info("saved %d tilt stacks for %s", P, name)
@@ -1086,7 +1100,6 @@ def mode_polish(argv, device="cuda"):
     from pyp_tpu_torch.pipeline.refine import (table_to_ctf_params,
                                                table_to_poses)
     from pyp_tpu_torch.pipeline.spr import apply_gain, load_movie
-    from pyp_tpu_torch.utils import Timer
 
     _refuse_slurm("polish", params)
     dev = resolve_device(device)
@@ -1240,20 +1253,341 @@ def mode_sva(argv, device="cuda"):
     return 0
 
 
+def mode_sprtrain(argv, device="cuda"):
+    """Train the NN particle picker from this project's picks (the
+    reference's sprtrain entry): micrograph averages + box coordinates ->
+    U-Net heatmap model saved to picker_model.npz, which
+    `-detect_method nn` then uses."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import as_f32, resolve_device
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.models import io as mio
+    from pyp_tpu_torch.models import picker as nn_picker
+
+    _refuse_slurm("sprtrain", params)
+    dev = resolve_device(device)
+    mics, coords = [], []
+    for p in sorted(Path(".").glob("*.meta.npz")):
+        meta = ItemMetadata(p.name.replace(".meta.npz", ""), ".",
+                            mode="spr").load()
+        if meta.is_done("box") and meta.is_done("average") and \
+                len(meta["box"]):
+            mics.append(np.asarray(meta["average"], dtype=np.float32))
+            coords.append(np.asarray(meta["box"])[:, :2])
+    if not mics:
+        logger.error("sprtrain: no micrographs with picks in project dir")
+        return 1
+    pixel = float(params["scope_pixel"])
+    radius_px = max(4, int(float(params["detect_rad"]) / pixel))
+    tb = int(params.get("train_bin") or 1)
+    if tb > 1:
+        # training binning: Fourier-crop inputs and scale picks/radius to
+        # the small grid
+        from pyp_tpu_torch.core.fft import fourier_crop
+
+        mics = [fourier_crop(as_f32(m, dev), (m.shape[0] // tb,
+                                              m.shape[1] // tb))
+                .cpu().numpy().astype(np.float32) for m in mics]
+        coords = [np.asarray(c, dtype=np.float32) / tb for c in coords]
+        radius_px = max(2, radius_px // tb)
+    patch = int(params.get("train_patch") or 128)
+    with Timer("picker training"):
+        model = nn_picker.train_picker(
+            mics, coords, radius_px, patch=patch,
+            steps=int(params.get("train_steps") or 300),
+            batch=int(params.get("train_batch") or 16),
+            lr=float(params.get("train_lr") or 3e-4),
+            seed=int(params.get("train_seed") or 0),
+            features=(8, 16, 32), device=dev)
+    mio.save_params(model.params, "picker_model.npz", patch=patch)
+    print(json.dumps({"micrographs": len(mics),
+                      "particles": int(sum(len(c) for c in coords)),
+                      "model": "picker_model.npz"}))
+    return 0
+
+
+def mode_tomotrain(argv, device="cuda"):
+    """Train the NN picker for tomograms from .spk picks (tomotrain):
+    per-slice heatmap supervision around each 3D pick, written to
+    picker_model_tomo.npz."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.io import boxfiles, mrc
+    from pyp_tpu_torch.models import io as mio
+    from pyp_tpu_torch.models import picker as nn_picker
+
+    _refuse_slurm("tomotrain", params)
+    dev = resolve_device(device)
+    pixel = float(params["scope_pixel"])
+    rad_px = max(3, int(float(params["tomo_spk_rad"]) / max(
+        pixel * int(params.get("tomo_rec_binning") or 8), 1e-6)))
+    slices, coords = [], []
+    for rec_path in sorted(Path(".").glob("*.rec.mrc")):
+        spk = rec_path.with_name(rec_path.name.replace(".rec.mrc", ".spk"))
+        if not spk.exists():
+            continue
+        # detect_nn3d use_denoised: train on the denoised tomogram when one
+        # exists beside the raw reconstruction
+        den = rec_path.with_name(rec_path.name.replace(".rec.mrc",
+                                                       ".den.mrc"))
+        if params.get("detect_nn3d_use_denoised", True) and den.exists():
+            rec_path = den
+        vol = mrc.read(rec_path).astype(np.float32)
+        picks = boxfiles.read_spk(spk)          # (N, >=3) (z, y, x)
+        for z in np.unique(np.round(picks[:, 0]).astype(int)):
+            if not (0 <= z < vol.shape[0]):
+                continue
+            sel = np.abs(picks[:, 0] - z) < rad_px
+            slices.append(vol[z])
+            coords.append(picks[sel][:, 1:3])
+    if not slices:
+        logger.error("tomotrain: no *.rec.mrc with matching .spk picks")
+        return 1
+    patch = int(params.get("train_patch") or 128)
+    steps = int(params.get("train_steps") or 300)
+    if params.get("detect_nn3d_num_epochs"):
+        # one "epoch" covers the slice set with ~100 sampled patches
+        steps = int(params["detect_nn3d_num_epochs"]) * 100
+    with Timer("picker training"):
+        model = nn_picker.train_picker(
+            slices, coords, rad_px, patch=patch, steps=steps,
+            batch=int(params.get("train_batch") or 16),
+            lr=float(params.get("train_lr") or 3e-4),
+            seed=int(params.get("train_seed") or 0),
+            features=(8, 16, 32), device=dev)
+    mio.save_params(model.params, "picker_model_tomo.npz", patch=patch)
+    print(json.dumps({"slices": len(slices), "model":
+                      "picker_model_tomo.npz"}))
+    return 0
+
+
+def mode_mine(argv, device="cuda"):
+    """Label-free tomogram pattern mining (the reference's milotrain/
+    miloeval): train the contrastive miner on the project's tomograms,
+    cluster a dense sweep of each, and write per-cluster coordinates
+    (<name>_cluster<k>.spk) + a JSON gallery."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.io import boxfiles, mrc
+    from pyp_tpu_torch.models import miner
+
+    dev = resolve_device(device)
+    # the JAX mode's precedence: *.rec.mrc, else mrc/*.mrc where mrc/ is a
+    # directory
+    recs = sorted(Path(".").glob("*.rec.mrc")) or sorted(
+        Path("mrc").glob("*.mrc")) if Path("mrc").is_dir() else sorted(
+        Path(".").glob("*.rec.mrc"))
+    if not recs:
+        logger.error("no tomogram volumes (*.rec.mrc or mrc/*.mrc) found")
+        return 1
+    vols = [mrc.read(p).astype(np.float32) for p in recs]
+    patch = int(params.get("mine_patch") or 16)
+    with Timer("miner training"):
+        model = miner.train_miner(
+            vols, patch=patch,
+            n_steps=int(params.get("mine_steps") or 300),
+            embed_dim=int(params.get("mine_embed_dim") or 32),
+            batch=int(params.get("mine_batch") or 64),
+            lr=float(params.get("mine_lr") or 1e-3),
+            temperature=float(params.get("mine_temperature") or 0.2),
+            seed=int(params.get("mine_seed") or 0), device=dev)
+    gallery = {}
+    K = int(params.get("mine_clusters") or 8)
+    for p, vol in zip(recs, vols):
+        name = p.name.replace(".rec.mrc", "").replace(".mrc", "")
+        with Timer("mining"):
+            clusters, _labels, _coords = miner.mine_tomogram(
+                model, vol, n_clusters=K, device=dev)
+        entry = []
+        for k, c in enumerate(clusters):
+            if c["size"]:
+                boxfiles.write_spk(c["coords"], f"{name}_cluster{k:02d}.spk")
+            entry.append({"cluster": k, "size": c["size"],
+                          "exemplars": np.asarray(c["exemplars"]).tolist()})
+        gallery[name] = entry
+    Path("mine_gallery.json").write_text(json.dumps(gallery, indent=1))
+    print(json.dumps({"tomograms": len(recs), "clusters": K,
+                      "gallery": "mine_gallery.json"}))
+    return 0
+
+
+def mode_prism(argv, device="cuda"):
+    """Self-supervised micrograph quality assessment (the prismPYP role):
+    learn the dataset's real+Fourier appearance, score every micrograph
+    by typicality, and write prism_score into each item's metadata (and
+    prism_embeddings.npz); the filter mode does the consensus filtering."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.analysis.filters import discover_bundles
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.models import quality as qual
+
+    dev = resolve_device(device)
+    mode = "tomo" if params.get("data_mode") == "tomo" else "spr"
+    mics, kept_names = [], []
+    for name in discover_bundles("."):
+        meta = ItemMetadata(name, ".", mode=mode).load()
+        if "average" in meta:
+            mics.append(np.asarray(meta["average"], dtype=np.float32))
+            kept_names.append(name)
+    if len(mics) < 2:
+        logger.error("prism: need >=2 items with averages (found %d)",
+                     len(mics))
+        return 1
+    stack = np.stack(mics)
+    with Timer("quality training"):
+        model = qual.train_quality(
+            stack,
+            size=int(params.get("prism_size") or 128),
+            latent_dim=int(params.get("prism_latent") or 16),
+            steps=int(params.get("prism_steps") or 300),
+            batch=int(params.get("prism_batch") or 16),
+            lr=float(params.get("prism_lr") or 1e-3),
+            seed=int(params.get("prism_seed") or 0),
+            momentum=float(params.get("prism_momentum") or 0.0),
+            weight_decay=float(params.get("prism_weight_decay") or 0.0),
+            log_every=int(params.get("prism_print_freq") or 0), device=dev)
+    scores = qual.quality_scores(model, stack, device=dev)
+    emb = qual.embed_quality(model, stack, device=dev).cpu().numpy()
+    for name, s in zip(kept_names, scores):
+        meta = ItemMetadata(name, ".", mode=mode).load()
+        meta.scalars["prism_score"] = float(s)
+        meta.save()
+    np.savez("prism_embeddings.npz", names=np.asarray(kept_names),
+             embeddings=emb, scores=scores)
+    print(json.dumps({"items": len(kept_names),
+                      "score_min": round(float(scores.min()), 3),
+                      "score_median": round(float(np.median(scores)), 3),
+                      "embeddings": "prism_embeddings.npz"}))
+    return 0
+
+
+def _het_kwargs(params, batch):
+    return dict(
+        latent_dim=int(params.get("het_latent") or 8),
+        steps=int(params.get("het_steps") or 500),
+        batch=int(params.get("het_batch") or batch),
+        lr=float(params.get("het_lr") or 1e-3),
+        low_res=float(params.get("het_rlref") or 60.0),
+        high_res=float(params.get("het_rhref") or 8.0),
+        kl_weight=float(params.get("het_kl") or 1e-3),
+        seed=int(params.get("het_seed") or 0),
+        hidden=int(params.get("het_hidden") or 128),
+        voltage_kv=float(params["scope_voltage"]),
+        cs_mm=float(params["scope_cs"]),
+        w=float(params["scope_wgh"]))
+
+
+def mode_heterogeneity(argv, device="cuda"):
+    """Continuous heterogeneity analysis on the refined stack (the
+    reference's heterogeneitytrain/eval around cryoDRGN): train the
+    per-particle latent encoder + Fourier-slice decoder at the refined
+    poses (or, with -het_eval, reuse het_model.npz), embed every particle
+    and decode volumes along a principal latent direction. With tilt
+    stacks (stacks/*_stack.npz from `csp -csp_save_stacks`, or
+    -het_input) the tilt-aware branch runs instead."""
+    params = _project_params(argv)
+    from pyp_tpu_torch import resolve_device
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.models import heterogeneity as het
+    from pyp_tpu_torch.pipeline.refine import (table_to_ctf_params,
+                                               table_to_poses)
+
+    dev = resolve_device(device)
+    pixel = float(params["scope_pixel"])
+    tilt_glob = sorted(glob.glob(
+        str(params.get("het_input") or "stacks/*_stack.npz")))
+    # the JAX mode's precedence, kept as it is
+    if tilt_glob and not Path("stack.mrc").exists() or params.get("het_input"):
+        return _heterogeneity_tilt(tilt_glob, params, pixel, dev)
+
+    stack = mrc.read("stack.mrc").astype(np.float32)
+    table = cistem.read_parameters("stack.cistem")
+    if params.get("het_eval") and Path("het_model.npz").exists():
+        # heterogeneityeval role: reuse the trained checkpoint
+        model = het.load_model("het_model.npz")
+        logger.info("heterogeneity: loaded het_model.npz (eval only)")
+    else:
+        with Timer("heterogeneity training"):
+            model = het.train_heterogeneity(
+                stack, table_to_poses(table, pixel),
+                table_to_ctf_params(table), pixel, device=dev,
+                **_het_kwargs(params, 32))
+        het.save_model(model, "het_model.npz")
+    latents = het.embed(model, stack, device=dev).cpu().numpy()
+    return _het_report(latents, model, params, pixel, stack, dev)
+
+
+def _heterogeneity_tilt(stack_files, params, pixel, dev):
+    """The tomoDRGN-role branch: the tilt-aware latent model on the
+    per-particle tilt stacks `csp -csp_save_stacks` exports."""
+    from pyp_tpu_torch.models import heterogeneity as het
+
+    if not stack_files:
+        logger.error("heterogeneity: no tilt stacks (stacks/*_stack.npz); "
+                     "run csp with -csp_save_stacks first")
+        return 1
+    parts = [np.load(f) for f in stack_files]
+    stacks = np.concatenate([p["stacks"] for p in parts])
+    poses = np.concatenate([p["poses"] for p in parts])
+    ctf = np.concatenate([p["ctf"] for p in parts])
+    weights = np.concatenate([p["weights"] for p in parts])
+    if params.get("het_eval") and Path("het_model.npz").exists():
+        model = het.load_model("het_model.npz")
+        logger.info("heterogeneity: loaded het_model.npz (eval only)")
+    else:
+        with Timer("heterogeneity training"):
+            model = het.train_heterogeneity_tilt(
+                stacks, poses, ctf, pixel, tilt_weights=weights, device=dev,
+                **_het_kwargs(params, 8))
+        het.save_model(model, "het_model.npz")
+    latents = het.embed_tilt(model, stacks, device=dev).cpu().numpy()
+    return _het_report(latents, model, params, pixel, stacks, dev)
+
+
+def _het_report(latents, model, params, pixel, stacks, dev):
+    """heterogeneity_latents.npz, het_volume_XX.mrc along the chosen PC
+    between its 5th and 95th percentiles, and the summary line."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.models import heterogeneity as het
+
+    np.savez("heterogeneity_latents.npz", latents=latents)
+    scores, comps, svals = het.latent_pca(latents, n_components=2)
+    nvol = int(params.get("het_volumes") or 5)
+    mean_z = latents.mean(axis=0)
+    pc = max(0, int(params.get("het_pc") or 1) - 1)
+    for i, q in enumerate(np.linspace(5, 95, nvol)):
+        z = mean_z + comps[pc] * np.percentile(scores[:, pc], q)
+        vol = het.decode_volume(model, z, device=dev).cpu().numpy()
+        mrc.write(vol.astype(np.float32), f"het_volume_{i:02d}.mrc",
+                  pixel_size=pixel)
+    total_var = latents.var(axis=0).sum() * max(len(latents) - 1, 1)
+    report = {"particles": int(len(stacks))}
+    if stacks.ndim == 4:
+        report["tilts"] = int(stacks.shape[1])
+    report.update({"latent_dim": int(latents.shape[1]), "volumes": nvol,
+                   "pc1_explained": float(svals[0] ** 2 / max(total_var,
+                                                              1e-9))})
+    print(json.dumps(report))
+    return 0
+
+
 PORTED = {"spr": mode_spr, "tomo": mode_tomo, "extract": mode_extract,
           "gain": mode_gain,
           "refine": mode_refine, "classify2d": mode_classify2d,
           "classify3d": mode_classify3d, "clean": mode_clean,
           "kselection": mode_kselection, "postprocess": mode_postprocess,
           "fsc": mode_fsc, "mask": mode_mask, "csp": mode_csp,
-          "polish": mode_polish, "sva": mode_sva}
+          "polish": mode_polish, "sva": mode_sva,
+          "sprtrain": mode_sprtrain, "tomotrain": mode_tomotrain,
+          "mine": mode_mine, "prism": mode_prism,
+          "heterogeneity": mode_heterogeneity}
 
 
 def main(argv=None, device="cuda"):
     """Entry point: `main([mode, ...], device=...)` for the ported modes
-    (spr, tomo, extract, gain, refine, classify2d, classify3d, clean,
-    kselection, postprocess, fsc, mask, csp, polish, sva). Returns the exit code; other
-    modes are not yet ported and return 2."""
+    (cli.PORTED). Returns the exit code; other modes are not yet ported
+    and return 2."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)

@@ -11,13 +11,17 @@ magnification correction, hot-pixel removal, frame grouping, alignment,
 averaging, the periodogram, the CTF search and the picking all run there,
 and only what the bundle stores comes back to the host.
 
-Not ported (each refused by name, see `check_ported`): the learned picker
-(`detect_method nn`) and the noise2noise micrograph denoiser
-(`denoise_spr n2n`), which need the network models.
+With `-denoise_spr n2n` a noise2noise U-Net (`models.denoise`), trained
+on the first micrograph's even/odd frame averages and kept for the
+process, denoises the average that picking reads (CTF and extraction
+stay on the raw average); `-detect_method nn` picks with the learned
+picker (`models.picker`) whose weights `sprtrain` writes to
+picker_model.npz (or -detect_nn_model).
 """
 
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -30,18 +34,12 @@ from pyp_tpu_torch.utils import Timer, get_logger
 
 logger = get_logger("spr")
 
-
-def check_ported(params: dict):
-    """Raise NotImplementedError for a preprocessing option the port does
-    not have; none is skipped or replaced silently."""
-    if str(params.get("detect_method") or "auto") == "nn":
-        raise NotImplementedError(
-            "detect_method=nn (the learned picker) is not ported; use "
-            "-detect_method auto")
-    if str(params.get("denoise_spr") or "none") == "n2n":
-        raise NotImplementedError(
-            "denoise_spr=n2n (the noise2noise micrograph denoiser) is not "
-            "ported; use -denoise_spr none")
+# the noise2noise micrograph denoiser, one per process as in the JAX
+# package: the first micrograph trains it, the rest reuse it. The lock
+# makes executor threads (slurm_tasks > 1) wait for the one that trains,
+# where the JAX package's threads may each train a model.
+_spr_denoiser_cache: dict = {}
+_spr_denoiser_lock = threading.Lock()
 
 
 def load_movie(path, params=None, dtype=np.float32):
@@ -347,13 +345,70 @@ def _pick(pick_image, params, pixel, meta):
     meta["box"] = rows.cpu().numpy().astype(np.float64)
 
 
+def _denoise_micrograph(frames, average, meta, params, dev):
+    """The denoised average (numpy float32): the n2n model, trained on the
+    aligned movie's even/odd frame averages where the process has none
+    yet, applied to `average`."""
+    from pyp_tpu_torch.models import denoise as dn
+    from pyp_tpu_torch.ops.motion import _phase_ramp
+
+    f = frames.to(torch.float32)
+    F = torch.fft.rfft2(f) * _phase_ramp(as_f32(meta["drift"], dev),
+                                         f.shape[1], f.shape[2])
+    aligned = torch.fft.irfft2(F, s=f.shape[1:])
+    del F
+    with _spr_denoiser_lock:
+        model = _spr_denoiser_cache.get("model")
+        if model is None:
+            even = aligned[0::2].mean(dim=0).cpu().numpy()
+            odd = aligned[1::2].mean(dim=0).cpu().numpy()
+            model = dn.train_denoiser(
+                [even], [odd],
+                steps=int(params.get("denoise_epochs") or 60),
+                lr=float(params.get("denoise_lr") or 1e-3),
+                patch=int(params.get("denoise_patch") or 64),
+                batch=int(params.get("denoise_batch") or 16),
+                seed=int(params.get("denoise_seed") or 0),
+                features=(16, 32), device=dev)
+            _spr_denoiser_cache["model"] = model
+    return dn.denoise_image(model, average, features=(16, 32),
+                            device=dev).cpu().numpy().astype(np.float32)
+
+
+def _pick_nn(pick_image, params, pixel, meta, work_dir):
+    """The learned picker on `pick_image` (a tensor on the device) into
+    meta["box"]: weights from -detect_nn_model or the project's
+    picker_model.npz (what `sprtrain` writes), rows (y, x, score)."""
+    from pyp_tpu_torch.models import io as mio
+    from pyp_tpu_torch.models import picker as nn_picker
+    from pyp_tpu_torch.models.unet import UNet2D
+
+    dev = pick_image.device
+    radius_px = max(4, int(float(params["detect_rad"]) / pixel))
+    model_path = Path(str(params.get("detect_nn_model") or "")
+                      or Path(work_dir) / "picker_model.npz")
+    features, patch = (8, 16, 32), 128
+    weights, meta_np = mio.load_params(model_path,
+                                       UNet2D(features).state_dict())
+    model = nn_picker.PickerModel(params=weights,
+                                  patch=int(meta_np.get("patch", patch)),
+                                  radius_px=radius_px)
+    heat = nn_picker.infer_heatmap(model, pick_image, features=features,
+                                   device=dev)
+    coords, vals, valid = nn_picker.pick_from_heatmap(
+        heat, radius_px,
+        threshold=float(params.get("detect_nn_threshold") or 0.3),
+        max_picks=int(params["detect_max"]), device=dev)
+    rows = torch.cat([coords.to(torch.float32), vals[:, None]], dim=1)[valid]
+    meta["box"] = rows.cpu().numpy().astype(np.float64)
+
+
 def process_micrograph(item, params: dict, work_dir=".",
                        device="cuda") -> dict:
     """Full per-micrograph preprocessing on `device`. `item` is
     {"name", "path"} or {"name", "frames": array}. Returns a summary dict
     (with "frame_uploads", the host->device copies of the movie this call
     made); detailed arrays land in the ItemMetadata bundle."""
-    check_ported(params)
     dev = resolve_device(device)
     name = item["name"]
     meta = ItemMetadata(name, work_dir, mode="spr").load()
@@ -386,10 +441,22 @@ def process_micrograph(item, params: dict, work_dir=".",
         meta["drift"] = np.zeros((f.shape[0], 2), dtype=np.float32)
         average_dev = f.mean(dim=0)
         meta["average"] = average_dev.cpu().numpy()
-    frames = None
     summary["drift_px"] = float(np.abs(np.diff(meta["drift"], axis=0)).sum())
     method = params.get("detect_method", "auto")
     to_pick = not meta.is_done("box") and method not in ("none", "manual")
+
+    # ---- micrograph denoising (the topaz-denoise/cryoCARE SPR role) ------
+    # the denoised average feeds picking only; CTF and extraction stay on
+    # the raw average
+    denoise = (str(params.get("denoise_spr") or "none") == "n2n"
+               and "drift" in meta and meta["drift"].shape[0] >= 4)
+    if denoise and not meta.is_done("denoised"):
+        with Timer("micrograph denoise"):
+            meta["denoised"] = _denoise_micrograph(
+                get_frames(), meta["average"], meta, params, dev)
+    frames = None
+    if denoise:
+        summary["denoised"] = True
     if average_dev is None and (to_pick or not meta.is_done("ctf")):
         average_dev = as_f32(meta["average"], dev)  # resumed: from the bundle
 
@@ -403,8 +470,14 @@ def process_micrograph(item, params: dict, work_dir=".",
 
     # ---- particle picking -------------------------------------------------
     if to_pick:
-        with Timer("particle picking"):
-            _pick(average_dev, params, pixel, meta)
+        pick_image = (as_f32(meta["denoised"], dev) if denoise
+                      else average_dev)
+        if method == "nn":
+            with Timer("NN particle picking"):
+                _pick_nn(pick_image, params, pixel, meta, work_dir)
+        else:
+            with Timer("particle picking"):
+                _pick(pick_image, params, pixel, meta)
     summary["particles"] = int(len(meta["box"])) if meta.is_done("box") else 0
 
     if params.get("plot_per_item", True):

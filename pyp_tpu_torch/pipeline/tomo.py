@@ -31,9 +31,11 @@ non-cubic tomogram and the WBP returns exactly `tomo_rec_thickness` /
 binning slices. On the prealignment path with the axis at 0 both
 packages write the same bundle (the port adds the scalar).
 
-Not ported (each refused by name, see `check_ported`): the trained
-denoisers (`denoise_method` n2n and wedge) and the membrane-segmentation
-network (`tomo_vir_method nn`), which need the network models.
+The trained denoisers (`denoise_method` n2n, on the even/odd-tilt half
+tomograms, and wedge, the missing-wedge restorer) and the membrane
+network of `tomo_vir_method nn` (loaded from membrane_model.npz or
+trained on procedural membranes and saved there) are `models.denoise`
+and `models.membrane`.
 """
 
 from __future__ import annotations
@@ -60,22 +62,6 @@ def _denoise_method(params: dict) -> str:
     if method == "none" and params.get("denoise_enable"):
         method = "bm4d"  # reference denoise tab default method
     return method
-
-
-def check_ported(params: dict):
-    """Raise NotImplementedError for a tomography option the port does not
-    have (the ones that train or load a network); none is skipped or
-    replaced silently."""
-    method = _denoise_method(params)
-    if method in ("n2n", "wedge"):
-        raise NotImplementedError(
-            f"denoise_method={method} (a trained tomogram denoiser) is not "
-            "ported; use -denoise_method deconv, bm4d, nad or imod-nad")
-    if (str(params.get("tomo_spk_method") or "none") == "surface"
-            and str(params.get("tomo_vir_method") or "none") == "nn"):
-        raise NotImplementedError(
-            "tomo_vir_method=nn (the membrane-segmentation network) is not "
-            "ported; use -tomo_vir_method none or template")
 
 
 def assemble_tilt_series(mdoc_path, params: dict, device="cuda") -> dict:
@@ -422,7 +408,10 @@ def _reconstruct(t2, angles, item, params, meta, summary, work_dir, name,
                         params.get("denoise_deconv_highpass") or 0.02),
                     phase_flipped=bool(params.get("tomo_rec_ctf_correct")),
                     device=dev)
-            else:  # bm4d, nad, imod-nad (check_ported refused the rest)
+            elif method_dn in ("n2n", "wedge"):
+                den = _denoise_trained(method_dn, t2, angles, recon, params,
+                                       shifts_r, thickness, slab, dev)
+            else:  # bm4d, nad, imod-nad
                 from pyp_tpu_torch.ops.denoise_classic import denoise_map
 
                 den = denoise_map(
@@ -443,6 +432,37 @@ def _reconstruct(t2, angles, item, params, meta, summary, work_dir, name,
     return recon if rec_dtype == np.float32 else None
 
 
+def _denoise_trained(method, t2, angles, recon, params, shifts_r, thickness,
+                     slab, dev):
+    """The trained tomogram denoisers: n2n learns on the series' own
+    even/odd-tilt half tomograms and denoises every slice; wedge learns
+    to fill the missing wedge of the tomogram's (z, x) slices and
+    restores it."""
+    from pyp_tpu_torch.models import denoise as dn
+    from pyp_tpu_torch.ops import tomo
+
+    steps = int(params.get("denoise_epochs") or 60)
+    lr = float(params.get("denoise_lr") or 1e-3)
+    batch = int(params.get("denoise_batch") or 16)
+    seed = int(params.get("denoise_seed") or 0)
+    if method == "n2n":
+        h1, h2 = tomo.wbp_reconstruct_halves(
+            t2, angles, shifts=shifts_r, thickness=thickness, slab=slab,
+            device=dev)
+        model = dn.train_denoiser(
+            [h1.cpu().numpy()], [h2.cpu().numpy()], steps=steps, lr=lr,
+            lr_finish=float(params.get("denoise_lr_finish") or 0.0),
+            batch=batch, seed=seed,
+            patch=min(int(params.get("denoise_patch") or 64), thickness,
+                      int(t2.shape[-1])), device=dev)
+        return dn.denoise_tomogram(model, recon, device=dev)
+    model = dn.train_wedge_restorer(
+        [recon.cpu().numpy()], tilt_max_deg=float(np.abs(angles).max()),
+        steps=steps, lr=lr, batch=batch, seed=seed, patch=min(32, thickness),
+        device=dev)
+    return dn.restore_wedge(model, recon, device=dev)
+
+
 def process_tilt_series(item, params: dict, work_dir=".", device="cuda") -> dict:
     """`item`: {"name", "tilts": (T, ny, nx) array or tensor, or "path",
     "angles": (T,)}. Runs every stage the bundle does not have yet on
@@ -450,7 +470,6 @@ def process_tilt_series(item, params: dict, work_dir=".", device="cuda") -> dict
     from pyp_tpu_torch.core.fft import bin_images
     from pyp_tpu_torch.pipeline.spr import _upload
 
-    check_ported(params)
     dev = resolve_device(device)
     name = item["name"]
     meta = ItemMetadata(name, work_dir, mode="tomo").load()
@@ -716,6 +735,43 @@ def pick_particles_3d(recon, params: dict, eff_pixel: float, device="cuda"):
     return box, vir, eulers
 
 
+def _virions_nn(recon, radii, n_peaks, params, dev):
+    """Virion seeds from the membrane network's probability map: the
+    weights of -tomo_mem_model / -tomo_vir_nn_model / membrane_model.npz
+    (in the working directory), else a network trained on procedural
+    membranes and saved there."""
+    from pyp_tpu_torch.models import io as mio
+    from pyp_tpu_torch.models import membrane as mem
+
+    mpath = Path(str(params.get("tomo_mem_model") or "")
+                 or str(params.get("tomo_vir_nn_model") or "")
+                 or "membrane_model.npz")
+    feats = (16, 32, 64)
+    if mpath.exists():
+        like = mem.train_membrane_segmenter(steps=0, features=feats,
+                                            device=dev)
+        loaded, _meta = mio.load_params(mpath, like.params)
+        model = mem.MembraneModel(params=loaded, features=feats)
+    else:
+        with Timer("membrane training"):
+            model = mem.train_membrane_segmenter(
+                steps=int(params.get("tomo_vir_nn_steps") or 400),
+                seed=int(params.get("train_seed") or 0),
+                patch=int(params.get("tomo_mem_patch_pxl") or 96),
+                features=feats, device=dev)
+        mio.save_params(model.params, mpath)
+    with Timer("membrane segmentation"):
+        prob = mem.segment_tomogram(model, recon, device=dev)
+    seg_thres = float(params.get("tomo_mem_seg_thres") or 0.0)
+    if seg_thres > 0:
+        # probability floor: weak responses don't vote
+        prob = torch.where(prob >= seg_thres, prob, torch.zeros_like(prob))
+    if params.get("tomo_mem_store_probabilities"):
+        mrc.write(prob.cpu().numpy().astype(np.float32), "membrane_prob.mrc")
+    return mem.detect_virions_from_segmentation(prob, radii, n_peaks=n_peaks,
+                                                device=dev)
+
+
 def _pick_surface(recon, params, eff_pixel, rad_px, dev):
     from pyp_tpu_torch.core.geometry import normal_to_euler
     from pyp_tpu_torch.ops import template_match as tm
@@ -743,12 +799,22 @@ def _pick_surface(recon, params, eff_pixel, rad_px, dev):
         radii = radii / vbin
         if det_tol_px:
             det_tol_px /= vbin
-    detect = (tm.detect_spheres_template
-              if str(params.get("tomo_vir_method") or "none") == "template"
-              else tm.detect_spheres)
-    centers, rads, scores, valid = detect(
-        det_vol, radii, n_peaks=int(params.get("tomo_vir_detect_max") or 8),
-        min_distance=det_tol_px, device=dev)
+    vir_method = str(params.get("tomo_vir_method") or "none")
+    n_peaks = int(params.get("tomo_vir_detect_max") or 8)
+    if vir_method == "nn":
+        # the membrane network segments the tomogram itself (it was trained
+        # on raw-contrast slices, so no detection band), and the sphere
+        # detector votes on its probability map; with -tomo_vir_binn the
+        # radii are the binned ones and the seeds are scaled up below, as
+        # in the JAX package
+        centers, rads, scores, valid = _virions_nn(recon, radii, n_peaks,
+                                                   params, dev)
+    else:
+        detect = (tm.detect_spheres_template if vir_method == "template"
+                  else tm.detect_spheres)
+        centers, rads, scores, valid = detect(
+            det_vol, radii, n_peaks=n_peaks, min_distance=det_tol_px,
+            device=dev)
     centers = centers.cpu().numpy()
     rads, scores = rads.cpu().numpy(), scores.cpu().numpy()
     if vbin > 1:

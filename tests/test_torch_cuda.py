@@ -60,6 +60,12 @@ CPU, parameters within 1e-3 (° and px), scores within 1e-4;
 accumulate_matrices of band-limited windows, half maps atol 1e-4 * max;
 the SVA score block the same angles and shifts, scores within 1e-4;
 refine_trajectories within 1e-3 px.
+
+The models (convolutions at cuDNN's default precision, TF32 on Hopper):
+the U-Net and the 3D encoder within 1e-2 x max, one Adam step of the
+picker on 95% of its kernel elements within 0.1 lr, batched tiled
+inference within 1e-2, the heterogeneity loss within 1e-3 relative and
+its gradients within 1e-2 x max.
 """
 
 import numpy as np
@@ -968,3 +974,96 @@ def test_refine_trajectories_cuda_matches_cpu(data):
 
     g, c = run("cuda"), run("cpu")
     np.testing.assert_allclose(g[0].cpu().numpy(), c[0].numpy(), atol=1e-3)
+
+
+# ---------------------------------------------------------------- models
+# The convolutions run at cuDNN's default precision (TF32 on Hopper), the
+# dense layers in FP32: U-Net and encoder outputs are held to 1e-2 x max,
+# the heterogeneity loss to 1e-3 relative and its gradients to 1e-2 x max.
+# One Adam step moves each parameter by about lr * sign(gradient), which
+# TF32 flips where a gradient is float noise (a bias in front of a
+# GroupNorm), so the step is held on 95% of the kernel elements within
+# 0.1 lr and the loss within 1e-3.
+
+def _unet_pair(features=(8, 16, 32)):
+    from pyp_tpu_torch.models import unet
+
+    nets = []
+    for dev in ("cuda", "cpu"):
+        nets.append(unet.init_params(unet.UNet2D(features), 3).to(dev).eval())
+    return nets
+
+
+def test_unet_forward_cuda_matches_cpu():
+    g, c = _unet_pair()
+    x = np.random.RandomState(6).randn(3, 1, 64, 48).astype(np.float32)
+    with torch.no_grad():
+        a, b = g(on(x, "cuda")).cpu().numpy(), c(on(x, "cpu")).numpy()
+    np.testing.assert_allclose(a, b, atol=1e-2 * np.abs(b).max())
+
+
+def test_train_picker_one_adam_step_cuda_matches_cpu():
+    from pyp_tpu_torch.models import picker
+
+    rng = np.random.RandomState(7)
+    mics = [rng.randn(96, 96).astype(np.float32) for _ in range(2)]
+    coords = [np.array([[30, 40], [60, 70]]), np.array([[20, 20]])]
+    lr = 3e-4
+    runs = [picker.train_picker(mics, coords, 4.0, patch=32, steps=1,
+                                batch=4, lr=lr, features=(8, 16, 32),
+                                device=dev) for dev in ("cuda", "cpu")]
+    moved = []
+    for k, v in runs[1].params.items():
+        if k.endswith("kernel"):
+            moved.append(np.abs(runs[0].params[k].numpy() - v.numpy()).ravel())
+    moved = np.concatenate(moved)
+    assert np.mean(moved <= 0.1 * lr) >= 0.95 and moved.max() <= 2.5 * lr
+
+
+def test_infer_heatmap_batched_cuda_matches_cpu():
+    from pyp_tpu_torch.models import picker, unet
+
+    net = unet.init_params(unet.UNet2D((8, 16, 32)), 4)
+    model = picker.PickerModel({k: v for k, v in net.state_dict().items()},
+                               32, 4.0)
+    mic = np.random.RandomState(8).randn(200, 168).astype(np.float32)
+    a = picker.infer_heatmap(model, mic, features=(8, 16, 32), device="cuda")
+    b = picker.infer_heatmap(model, mic, features=(8, 16, 32), device="cpu")
+    np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-2)
+
+
+def test_encoder3d_cuda_matches_cpu():
+    from pyp_tpu_torch.models import miner, unet
+
+    enc = unet.init_params(miner.Encoder3D(embed_dim=16), 5).eval()
+    x = np.random.RandomState(9).randn(40, 1, 16, 16, 16).astype(np.float32)
+    with torch.no_grad():
+        a = enc.to("cuda")(on(x, "cuda")).cpu().numpy()
+        b = enc.to("cpu")(on(x, "cpu")).numpy()
+    np.testing.assert_allclose(a, b, atol=1e-2)
+
+
+def test_heterogeneity_loss_cuda_matches_cpu(data):
+    from pyp_tpu_torch.models import heterogeneity as het
+    from pyp_tpu_torch.models import unet
+
+    mask_pts = r3.make_mask_points(N, PIXEL, 60.0, 2.5 * PIXEL)
+    eps = np.random.RandomState(10).randn(8, 4).astype(np.float32)
+    out = []
+    for dev in ("cuda", "cpu"):
+        enc = unet.init_params(het.Encoder(4, N), 1).to(dev)
+        dec = unet.init_params(het.SliceDecoder(4, 32), 2).to(dev)
+        xv, ctf, coords = het._slice_data(
+            on(data["stack"][:8], dev), on(truth_poses(data)[:8], dev),
+            on(data["ctf_params"][:8], dev), on(mask_pts, dev), N, PIXEL,
+            300.0, 2.7, 0.07)
+        x = on(het._standardized(data["stack"][:8]), dev)[:, None]
+        loss = het._het_loss(enc, dec, x, coords, ctf, xv, on(eps, dev), 1e-3)
+        loss.backward()
+        grads = [p.grad.cpu().numpy() for m in (enc, dec)
+                 for p in m.parameters()]
+        out.append((loss.item(), grads))
+    (lg, gg), (lc, gc) = out
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    for a, b in zip(gg, gc):
+        np.testing.assert_allclose(a, b, atol=1e-2 * np.abs(b).max() + 1e-12)

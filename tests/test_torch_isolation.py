@@ -58,8 +58,7 @@ def _imported_modules(path):
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_file_imports_nothing_of_pyp_tpu(path):
     bad = [m for m in _imported_modules(path)
-           if m == "pyp_tpu" or m.startswith("pyp_tpu.") or m == "jax"
-           or m.startswith("jax.")]
+           if m.split(".")[0] in ("pyp_tpu", "jax", "flax", "optax")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -340,6 +339,23 @@ def test_job_graph_and_local_executor_behave_the_same(workers, fault_rate):
         assert calls.count("bad") == 3      # tried, then retried twice
 
 
+def test_discover_bundles_is_the_same(tmp_path):
+    """The port's copy of `discover_bundles` (what `prism` reads): the
+    same function, the same names."""
+    import inspect
+
+    from pyp_tpu.analysis import filters as jf
+    from pyp_tpu_torch.analysis import filters as tf
+
+    assert inspect.getsource(tf.discover_bundles) == inspect.getsource(
+        jf.discover_bundles)
+    for name in ("b", "a", "c.x"):
+        (tmp_path / f"{name}.meta.npz").write_bytes(b"")
+    (tmp_path / "a.meta.json").write_text("{}")
+    assert tf.discover_bundles(tmp_path) == jf.discover_bundles(tmp_path) == [
+        "a", "b", "c.x"]
+
+
 def test_load_selection_is_the_same(tmp_path):
     import json
 
@@ -355,9 +371,6 @@ def test_load_selection_is_the_same(tmp_path):
 
 
 @pytest.mark.parametrize("flags,word", [
-    (["-detect_method", "nn"], "detect_method"),
-    (["-denoise_spr", "n2n"], "denoise_spr"),
-    (["-prism_enable"], "prism_enable"),
     (["-slurm_queue", "gpu"], "SLURM"),
     (["-slurm_submit"], "SLURM"),
 ])
@@ -533,7 +546,18 @@ ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "csp_polish_frames", "refine_trajectories", "polish",
                 "align_subvolumes", "refine_subvolumes", "center_subvolumes",
                 "classify_subvolumes", "average_subvolumes", "sva_iterate",
-                "cli_csp", "cli_polish", "cli_sva"]
+                "cli_csp", "cli_polish", "cli_sva", "train_picker",
+                "infer_heatmap", "pick_from_heatmap", "pick_tomogram",
+                "train_denoiser", "denoise_image", "denoise_tomogram",
+                "wedge_filter_2d", "wedge_filter_3d", "train_wedge_restorer",
+                "restore_wedge", "train_membrane_segmenter",
+                "segment_tomogram", "detect_virions_from_segmentation",
+                "train_miner", "embed_patches", "mine_tomogram", "featurize",
+                "train_quality", "embed_quality", "quality_scores",
+                "train_heterogeneity", "train_heterogeneity_tilt", "embed",
+                "embed_tilt", "decode_volume", "cli_sprtrain",
+                "cli_tomotrain", "cli_mine", "cli_prism",
+                "cli_heterogeneity"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -542,6 +566,12 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     resolve_device where there is no card: none carries on on the CPU."""
     from pyp_tpu_torch.analysis import modelfit
     from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.models import denoise as tden
+    from pyp_tpu_torch.models import heterogeneity as thet
+    from pyp_tpu_torch.models import membrane as tmem
+    from pyp_tpu_torch.models import miner as tminer
+    from pyp_tpu_torch.models import picker as tpick
+    from pyp_tpu_torch.models import quality as tqual
     from pyp_tpu_torch.ops import (ab_initio, csp, ctf_fit, denoise_classic,
                                    extract, filament, frm, motion, pick,
                                    polish, reconstruct, refine2d, refine3d,
@@ -578,6 +608,12 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
                            ("num1", "den1", "num2", "den2")})
     tmrc.write(stack, "stack.mrc")
     tcistem.write_parameters(table, "stack.cistem")
+    # the models' entry points, on empty weights: each raises before it
+    # reads them
+    pmodel = tpick.PickerModel({}, 16, 2.0)
+    dmodel = tden.DenoiseModel({}, 16)
+    qmodel = tqual.QualityModel({}, 2, 8, np.zeros(2), np.ones(2))
+    hmodel = thet.HetModel({}, {}, 2, 16, 2.0, np.zeros((3, 2), np.float32))
     calls = {
         "ab_initio": lambda: ab_initio.ab_initio(stack, cp, 2.0),
         "ab_initio_frm": lambda: ab_initio.ab_initio_frm(stack, cp, 2.0),
@@ -697,6 +733,48 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
         "cli_csp": lambda: tcli.main(["csp", "-data_path", "m.mrc"]),
         "cli_polish": lambda: tcli.main(["polish"]),
         "cli_sva": lambda: tcli.main(["sva"]),
+        "train_picker": lambda: tpick.train_picker([stack[0]], [coords], 2.0,
+                                                   patch=16),
+        "infer_heatmap": lambda: tpick.infer_heatmap(pmodel, stack[0]),
+        "pick_from_heatmap": lambda: tpick.pick_from_heatmap(stack[0], 2),
+        "pick_tomogram": lambda: tpick.pick_tomogram(pmodel, vol, 2),
+        "train_denoiser": lambda: tden.train_denoiser([stack[0]], [stack[1]],
+                                                      patch=16),
+        "denoise_image": lambda: tden.denoise_image(dmodel, stack[0]),
+        "denoise_tomogram": lambda: tden.denoise_tomogram(dmodel, vol),
+        "wedge_filter_2d": lambda: tden.wedge_filter_2d(stack[0], 60.0),
+        "wedge_filter_3d": lambda: tden.wedge_filter_3d(vol, 60.0),
+        "train_wedge_restorer": lambda: tden.train_wedge_restorer(
+            [vol], 60.0, patch=16),
+        "restore_wedge": lambda: tden.restore_wedge(
+            tden.DenoiseModel({"net": {}, "tilt_max": 60.0}, 16), vol),
+        "train_membrane_segmenter": lambda: tmem.train_membrane_segmenter(
+            patch=16),
+        "segment_tomogram": lambda: tmem.segment_tomogram(
+            tmem.MembraneModel({}), vol),
+        "detect_virions_from_segmentation": lambda:
+            tmem.detect_virions_from_segmentation(vol, [3.0]),
+        "train_miner": lambda: tminer.train_miner([vol], patch=8),
+        "embed_patches": lambda: tminer.embed_patches(
+            tminer.MinerModel({}, 8, 4), vol[None, :8, :8, :8]),
+        "mine_tomogram": lambda: tminer.mine_tomogram(
+            tminer.MinerModel({}, 8, 4), vol),
+        "featurize": lambda: tqual.featurize(stack, 8),
+        "train_quality": lambda: tqual.train_quality(stack, 8),
+        "embed_quality": lambda: tqual.embed_quality(qmodel, stack),
+        "quality_scores": lambda: tqual.quality_scores(qmodel, stack),
+        "train_heterogeneity": lambda: thet.train_heterogeneity(
+            stack, poses, cp, 2.0),
+        "train_heterogeneity_tilt": lambda: thet.train_heterogeneity_tilt(
+            stack[None], poses[None], cp[None], 2.0),
+        "embed": lambda: thet.embed(hmodel, stack),
+        "embed_tilt": lambda: thet.embed_tilt(hmodel, stack[None]),
+        "decode_volume": lambda: thet.decode_volume(hmodel, np.zeros(2)),
+        "cli_sprtrain": lambda: tcli.main(["sprtrain"]),
+        "cli_tomotrain": lambda: tcli.main(["tomotrain"]),
+        "cli_mine": lambda: tcli.main(["mine"]),
+        "cli_prism": lambda: tcli.main(["prism"]),
+        "cli_heterogeneity": lambda: tcli.main(["heterogeneity"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -220,18 +220,6 @@ def test_process_micrograph_options(movie, tmp_path, case):
     assert_bundles_agree(TMeta("m", td).load(), JMeta("m", jd).load())
 
 
-@pytest.mark.parametrize("kw,word", [
-    (dict(detect_method="nn"), "detect_method"),
-    (dict(denoise_spr="n2n"), "denoise_spr"),
-])
-def test_options_that_need_the_models_are_refused_by_name(movie, tmp_path,
-                                                          kw, word):
-    with pytest.raises(NotImplementedError, match=word):
-        tspr.process_micrograph({"name": "m", "frames": movie},
-                                params_with(**kw), tmp_path, device="cpu")
-    assert not list(tmp_path.iterdir())
-
-
 def test_extract_stack_options(both, tmp_path):
     params, jd, td, _, _ = both
     for d in (jd, td):
@@ -372,10 +360,7 @@ def test_cli_spr_extract_gain_match_jax(movie, tmp_path):
 def test_cli_refusals_and_empty_inputs(movie, tmp_path):
     jmrc.write(movie[:2], tmp_path / "mov.mrc")
     argv = ["spr", "-data_path", str(tmp_path / "mov.mrc")] + FLAGS
-    for extra, word in ((["-prism_enable"], "prism_enable"),
-                        (["-slurm_queue", "gpu"], "SLURM"),
-                        (["-detect_method", "nn"], "detect_method"),
-                        (["-denoise_spr", "n2n"], "denoise_spr")):
+    for extra, word in ((["-slurm_queue", "gpu"], "SLURM"),):
         work = tmp_path / word
         work.mkdir()
         with pytest.raises(NotImplementedError, match=word):

@@ -288,10 +288,6 @@ def test_cli_tomo_mode(sidecar, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,word", [
-    (["-denoise_method", "n2n"], "denoise_method=n2n"),
-    (["-denoise_method", "wedge"], "denoise_method=wedge"),
-    (["-tomo_spk_method", "surface", "-tomo_vir_method", "nn"],
-     "tomo_vir_method=nn"),
     (["-slurm_queue", "gpu"], "SLURM"),
 ])
 def test_refused_tomography_options_raise_by_name(flags, word, tmp_path,

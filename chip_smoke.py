@@ -1,5 +1,5 @@
-"""Smoke run of pyp_tpu_torch on one CUDA card: builds the port's kernels
-from the sources in this checkout, checks each against its plain PyTorch
+"""Smoke run of pyp_tpu_torch on one CUDA card: builds the port's kernel
+and its host library from the sources in this checkout, checks each against its plain PyTorch
 version at the shapes the main paths give it, then drives the SPA
 refinement loop through `pyp_tpu_torch.cli.main` on a synthetic
 4,096-particle, box-128 dataset, once per engine, the preprocessing
@@ -116,6 +116,36 @@ and the subtomogram phases:
              run's poses and map, then the FRM protocol on the polished
              stack: FSC(0.143) within a shell of the unpolished run's.
 
+and, after spr_refine, the streaming slice's host layers around the
+card paths (each phase reads shift_scored_match's launches, 0):
+
+  interop    `export_star` of spr_refine's micrograph-contrast run, then
+             `import_star` into a fresh project: eulers within 1e-3°,
+             shifts within 1e-3 px, defocus within 0.1 Å; `refine` (FRM,
+             two iterations at the run's last two limits) from the
+             imported poses and its final map, FSC(0.143) no worse than a
+             shell above spr_refine's; `byp` .cistem -> .par read back
+             equal to the .par's printed precision;
+  stream     `cli.main(["stream", ...])` in a thread while the three
+             movies appear one by one in a watch directory (spr's flags,
+             8 classes, a file metadb): each movie's picks and defocus
+             equal to the spr phase's bundles, classes whose occupancies
+             sum to the particles, 3 micrographs and the classes in the
+             metadb; a pypd.restart changing a ctf_ parameter re-runs CTF
+             estimation alone; pypd.stop ends it; `export_session` writes
+             a 3-row micrographs star and every pick; seconds per movie
+             beside spr's;
+  workflow   `workflows/spa_tutorial.toml` through `cli.main(["workflow",
+             ...])` on the three movies (spr + extract, refine, postprocess)
+             with spr's flags, -no_extract_inv, the 20 Å start and the FRM
+             protocol: every block rc 0, FSC(0.143) no worse than a shell
+             above spr_refine's micrograph-contrast run; the wall per block;
+
+and, right after the kernel check, `tiff_lzw`: a 4 x 1024² int8 LZW TIFF
+movie read by `io/tiff` through the native pypio library (built from
+`pyp_tpu_torch/csrc/pypio.cpp` beside the kernel) and, on one strip,
+through the Python decoder: MB/s of each, arrays equal.
+
 and the learned models (pyp_tpu_torch/models, torch.nn; each phase
 reads shift_scored_match's launches, 0):
 
@@ -208,13 +238,25 @@ def phase_device():
 
 
 def phase_build():
+    """Both libraries from the checkout's sources, started together: the
+    CUDA kernel (nvcc) and the host library pypio (g++), which the TIFF
+    reader hands its LZW strips."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pyp_tpu_torch.ops import _build
 
+    def build(name):
+        t0 = time.perf_counter()
+        path = _build.build(name)
+        _build.load(name)
+        return name, os.path.relpath(path, ROOT), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = _build.build("shift_scored_match")
-    _build.load("shift_scored_match")
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(build, ("shift_scored_match", "pypio")))
     emit({"phase": "build", "kernel": "shift_scored_match",
-          "library": os.path.relpath(path, ROOT),
+          "library": built[0][1], "kernel_seconds": built[0][2],
+          "host_library": built[1][1], "host_library_seconds": built[1][2],
           "seconds": time.perf_counter() - t0})
 
 
@@ -621,9 +663,10 @@ def phase_frm_options(data, init):
                            f">= {OPTIONS_CC_BAR}")
 
 
-def _cli_json(argv, cwd):
+def _cli_json(argv, cwd, last=False):
     """cli.main(argv, device="cuda") run in `cwd` with stdout captured:
-    (the JSON object it printed, wall seconds)."""
+    (the JSON object it printed, wall seconds); with `last`, the last of
+    the one-line objects (a workflow prints its blocks' first)."""
     import contextlib
     import io
 
@@ -640,6 +683,9 @@ def _cli_json(argv, cwd):
     if rc != 0:
         raise RuntimeError(f"cli.main({argv}) returned {rc}:\n{buf.getvalue()}")
     text = buf.getvalue()
+    if last:
+        line = [ln for ln in text.splitlines() if ln.startswith("{")][-1]
+        return json.loads(line), wall
     # the first JSON object printed (`spr -prism_enable` prints prism's,
     # then the merge's)
     return json.JSONDecoder().raw_decode(text[text.index("{"):])[0], wall
@@ -1036,7 +1082,8 @@ def phase_spr_synthesize(volume, movies_dir):
 
 def phase_spr(movies_dir, project, truth):
     """The `spr` mode on the movie set, held to the planted truth, then
-    the same call again, which must only resume."""
+    the same call again, which must only resume. Returns the first call's
+    seconds per movie."""
     import torch
 
     from pyp_tpu_torch.io.metadata import ItemMetadata
@@ -1104,6 +1151,7 @@ def phase_spr(movies_dir, project, truth):
                         f"{RESUME_BAR} of {wall:.2f} s")
     if failures:
         raise RuntimeError("spr bars failed: " + "; ".join(failures))
+    return wall / merge["micrographs"]
 
 
 def phase_spr_layers(movies_dir):
@@ -1288,21 +1336,534 @@ def phase_spr_refine(project, volume, root):
     return work, iters[last]["fsc143_A"]
 
 
+# ---------------------------------------------------------------------------
+# the streaming slice: RELION interchange, the session daemon and the
+# workflow runner on the spr phases' movies and project
+# ---------------------------------------------------------------------------
+
+INTEROP_EULER_TOL_DEG = 1e-3
+INTEROP_SHIFT_TOL_PX = 1e-3
+INTEROP_DEFOCUS_TOL_A = 0.1
+STREAM_CLASSES = 8
+STREAM_WAIT_S = 300.0
+
+
+def _one_shell_A(fsc_A):
+    """The width of one Fourier shell at `fsc_A` for box 128 at 1 Å/px."""
+    from pyp_tpu_torch.tools.e2e_spa import SLICE
+
+    return fsc_A ** 2 / (SLICE["box"] * SLICE["pixel"])
+
+
+def phase_interop(refined, fsc_ref, root):
+    """`export_star` of spr_refine's micrograph-contrast run (its final
+    table) and `import_star` into a fresh project. Bars: the imported
+    table's eulers within 1e-3°, shifts within 1e-3 px and defocus within
+    0.1 Å of the exported one; `refine` (FRM, the last two resolution
+    limits of the run's protocol, two iterations) from the imported poses
+    and the run's final map reaches FSC(0.143) no worse than one shell
+    above spr_refine's; `byp` of the .cistem to a .par, read back, equal to
+    the .par's printed precision. Returns the kernel launches (0)."""
+    import glob
+    import shutil
+
+    import torch
+
+    from pyp_tpu_torch.io import cistem, parfile
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.tools import profile_refine
+    from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS, SLICE
+
+    scope = ["-scope_pixel", str(SLICE["pixel"]), "-scope_voltage", "300",
+             "-scope_cs", "2.7", "-scope_wgh", "0.07"]
+    export = os.path.join(root, "interop_export")
+    project = os.path.join(root, "interop_import")
+    os.makedirs(export)
+    os.makedirs(project)
+    tables = sorted(glob.glob(os.path.join(refined, "maps",
+                                           "dataset_r01_??.cistem")))
+    maps = sorted(glob.glob(os.path.join(refined, "maps",
+                                         "dataset_r01_??.mrc")))
+    shutil.copy(tables[-1], os.path.join(export, "stack.cistem"))
+    kernels.shift_scored_match.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out_e, wall_e = _cli_json(["export_star", "-export_location", "."]
+                              + scope, export)
+    shutil.copy(os.path.join(export, "particles.star"), project)
+    out_i, wall_i = _cli_json(["import_star", "particles.star"], project)
+    exported = cistem.read_parameters(os.path.join(export, "stack.cistem"))
+    imported = cistem.read_parameters(os.path.join(project, "stack.cistem"))
+
+    def max_diff(cols):
+        return max(float(np.abs(np.asarray(imported[c], np.float64)
+                                - np.asarray(exported[c], np.float64)).max())
+                   for c in cols)
+
+    row = {"phase": "interop", "export_s": wall_e, "import_s": wall_i,
+           "particles": out_e["particles"],
+           "imported": out_i["particles.star"]["particles"],
+           "euler_max_diff_deg": max_diff(("phi", "theta", "psi")),
+           "shift_max_diff_px": max_diff(("x_shift", "y_shift"))
+           / SLICE["pixel"],
+           "defocus_max_diff_A": max_diff(("defocus_1", "defocus_2"))}
+    # refinement from the imported poses on the card
+    shutil.copy(os.path.join(refined, "stack.mrc"), project)
+    shutil.copy(maps[-1], os.path.join(project, "initial_model.mrc"))
+    # the resolution limits of the run's last two iterations
+    rhref = FRM_ARGS[FRM_ARGS.index("-refine_rhref") + 1].split(":")
+    its = [int(os.path.basename(t)[-9:-7]) for t in tables[-2:]]
+    last_limits = ":".join(rhref[min(it - 2, len(rhref) - 1)] for it in its)
+    argv = list(FRM_ARGS)
+    argv[argv.index("-refine_maxiter") + 1] = "2"
+    argv[argv.index("-refine_rhref") + 1] = last_limits
+    cwd = os.getcwd()
+    os.chdir(project)
+    try:
+        iters, wall_r = _sync_s(lambda: profile_refine.drive(argv, "cuda"))
+    finally:
+        os.chdir(cwd)
+    fsc = iters[max(iters)]["fsc143_A"]
+    # .cistem -> .par with byp, read back
+    out_b, wall_b = _cli_json(["byp", "stack.cistem"], project)
+    back = parfile.to_cistem_table(parfile.read(
+        os.path.join(project, out_b["output"])))
+    par_err = {c: float(np.abs(np.asarray(back[c], np.float64)
+                               - np.asarray(imported[c], np.float64)).max())
+               for c in ("phi", "theta", "psi", "x_shift", "y_shift",
+                         "defocus_1", "defocus_2")}
+    row.update(refine_s=wall_r, refine_rhref=last_limits,
+               refine_iterations=sorted(iters), fsc143_A=fsc,
+               fsc143_spr_refine_A=fsc_ref, one_shell_A=_one_shell_A(fsc_ref),
+               byp_s=wall_b, par_max_diff=par_err,
+               max_memory_allocated_GiB=torch.cuda.max_memory_allocated() / 2**30,
+               launches=kernels.shift_scored_match.launches)
+    emit(row)
+    failures = []
+    if not row["particles"] == row["imported"] == exported.n_rows:
+        failures.append(f"{row['imported']} of {row['particles']} imported")
+    for key, bar in (("euler_max_diff_deg", INTEROP_EULER_TOL_DEG),
+                     ("shift_max_diff_px", INTEROP_SHIFT_TOL_PX),
+                     ("defocus_max_diff_A", INTEROP_DEFOCUS_TOL_A)):
+        if not row[key] <= bar:
+            failures.append(f"{key} {row[key]} > {bar}")
+    if not fsc <= fsc_ref + row["one_shell_A"]:
+        failures.append(f"FSC {fsc:.3f} Å from the imported poses against "
+                        f"{fsc_ref:.3f} Å")
+    # half the last printed digit of the .par columns (%8.2f angles,
+    # %10.2f shifts, %9.1f defocus)
+    for c, tol in (("phi", 5e-3), ("theta", 5e-3), ("psi", 5e-3),
+                   ("x_shift", 5e-3), ("y_shift", 5e-3), ("defocus_1", 5e-2),
+                   ("defocus_2", 5e-2)):
+        if not par_err[c] <= tol + 1e-9:
+            failures.append(f".par round trip {c} off by {par_err[c]}")
+    if row["launches"]:
+        failures.append("interop launched shift_scored_match")
+    if failures:
+        raise RuntimeError("interop bars failed: " + "; ".join(failures))
+    return row["launches"]
+
+
+def _link_or_copy(src, dst):
+    """`dst` appears whole at once: a hard link, else a copy renamed into
+    place."""
+    import shutil
+
+    try:
+        os.link(src, dst)
+    except OSError:
+        tmp = os.path.join(os.path.dirname(dst), "." + os.path.basename(dst))
+        shutil.copy(src, tmp)
+        os.replace(tmp, dst)
+
+
+def _wait_for(check, what, timeout=STREAM_WAIT_S, thread=None):
+    t0 = time.perf_counter()
+    while not check():
+        if thread is not None and not thread.is_alive():
+            raise RuntimeError(f"the stream daemon ended before {what}")
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"timed out after {timeout} s waiting for "
+                               f"{what}")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def phase_stream(movies_dir, project, root, spr_s_per_movie):
+    """`cli.main(["stream", ...])` in this process (a thread) on a watch
+    directory into which the three movies appear one by one, with the spr
+    phase's flags, incremental 2D classification (8 classes) and a file
+    metadb. Bars: 3 processed; each movie's particle count and defocus
+    equal to the spr phase's bundle of the same movie; classes made, their
+    occupancies summing to the particles; the metadb holds 3 micrographs
+    and the classes document; a pypd.restart that changes a ctf_ parameter
+    re-runs CTF estimation on each movie and neither the alignment nor
+    the picking (JAX's `_invalidate`: ctf_force drops the bundles' ctf
+    entries only); pypd.stop ends the daemon; `export_session` writes a
+    micrographs star of 3 rows and autopick stars holding every pick.
+    Reports seconds per movie beside the spr phase's. Returns the kernel
+    launches (0)."""
+    import threading
+
+    import torch
+
+    from pyp_tpu_torch import cli
+    from pyp_tpu_torch.io import star
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.stream.metadb import MetaDB
+    from pyp_tpu_torch.tools import e2e_spr
+
+    watch = os.path.join(root, "stream_watch")
+    session = os.path.join(root, "stream_session")
+    os.makedirs(watch)
+    os.makedirs(session)
+    db_path = os.path.join(session, "metadb.json")
+    names = sorted(os.path.basename(p)[:-4] for p in
+                   os.listdir(movies_dir) if p.endswith(".mrc"))
+    names = [n for n in names if n.startswith("movie_")]
+    spr_meta = {n: ItemMetadata(n, project).load() for n in names}
+    # the classification's particle threshold: all three movies' picks, so
+    # that it runs once, when the last movie is in
+    class_min = sum(len(m["box"]) for m in spr_meta.values())
+
+    def db():
+        return MetaDB(db_path) if os.path.exists(db_path) else None
+
+    def n_micrographs():
+        d = db()
+        return d.count_micrographs("group", "sess") if d else 0
+
+    argv = (["stream"] + e2e_spr.SPR_ARGS[1:]
+            + ["-data_path", os.path.join(watch, "*.mrc"), "-data_set",
+               "sess", "-class2d_enable", "-class2d_num",
+               str(STREAM_CLASSES), "-class2d_min", str(class_min),
+               "-stream_metadb", db_path, "-stream_poll_interval", "0.2"])
+    result = {}
+
+    def run():
+        try:
+            result["rc"] = cli.main(argv, device="cuda")
+        except BaseException as e:  # noqa: BLE001 — reported below
+            result["error"] = repr(e)
+
+    kernels.shift_scored_match.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(session)          # the daemon's project dir, for the whole run
+    thread = threading.Thread(target=run, name="stream-daemon")
+    per_movie = []
+    try:
+        t0 = time.perf_counter()
+        thread.start()
+        for i, name in enumerate(names):
+            _link_or_copy(os.path.join(movies_dir, name + ".mrc"),
+                          os.path.join(watch, name + ".mrc"))
+            per_movie.append(_wait_for(lambda: n_micrographs() >= i + 1,
+                                       f"{name} in the metadb",
+                                       thread=thread))
+        _wait_for(lambda: db().get_twod_classes("group", "sess") is not None,
+                  "the classes document", thread=thread)
+        first_pass_s = time.perf_counter() - t0
+        bundles = {n: ItemMetadata(n, session).load() for n in names}
+        picks = {n: int(len(m["box"])) for n, m in bundles.items()}
+        defocus = {n: [float(m["ctf"][0]), float(m["ctf"][1])]
+                   for n, m in bundles.items()}
+        drift_before = {n: np.asarray(m["drift"]) for n, m in bundles.items()}
+        # restart with one ctf_ parameter changed
+        with _StageTimes() as stages:
+            flag = os.path.join(session, "pypd.restart")
+            with open(flag, "w") as f:
+                f.write("ctf_max_def = 40001.0\n")
+            restart_s = _wait_for(lambda: not os.path.exists(flag),
+                                  "the restart", thread=thread)
+        (open(os.path.join(session, "pypd.stop"), "w")).close()
+        thread.join(timeout=STREAM_WAIT_S)
+    finally:
+        os.chdir(cwd)
+    if thread.is_alive():
+        raise RuntimeError("the stream daemon did not stop on pypd.stop")
+    launches = kernels.shift_scored_match.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    d = db()
+    classes = d.get_twod_classes("group", "sess")
+    occ = np.asarray(classes["occupancy"], np.float64)
+    ran = [name for name, _ in stages.rows]
+    drift_after = {n: np.asarray(ItemMetadata(n, session).load()["drift"])
+                   for n in names}
+    # the session's RELION export
+    export = os.path.join(root, "stream_export")
+    os.makedirs(export)
+    out_x, wall_x = _cli_json(["export_session", "-data_parent", session],
+                              export)
+    rel = os.path.join(export, "relion")
+    mics = star.read(os.path.join(rel, "sess_micrographs.star"))
+    exported_picks = sum(
+        len(next(iter(star.read(os.path.join(rel, f"{n}_autopick.star"))
+                      .values()))["loop"]["rlnCoordinateX"]) for n in names)
+    row = {"phase": "stream", "rc": result.get("rc"),
+           "error": result.get("error"), "first_pass_s": first_pass_s,
+           "seconds_per_movie": per_movie,
+           "spr_seconds_per_movie": spr_s_per_movie,
+           "picks": picks,
+           "picks_spr": {n: int(len(m["box"])) for n, m in spr_meta.items()},
+           "defocus_max_diff_A": max(
+               abs(defocus[n][k] - float(spr_meta[n]["ctf"][k]))
+               for n in names for k in (0, 1)),
+           "classes": len(occ), "class_particles": classes["particles"],
+           "occupancy_fraction_sum": float(occ.sum() / classes["particles"]),
+           "metadb_micrographs": d.count_micrographs("group", "sess"),
+           "session_status": d.get_session("group", "sess")["status"],
+           "restart_s": restart_s, "restart_stages": ran,
+           "drift_unchanged": all(np.array_equal(drift_before[n],
+                                                 drift_after[n])
+                                  for n in names),
+           "export_session_s": wall_x,
+           "exported_micrographs": out_x["micrographs"],
+           "exported_picks": exported_picks,
+           "max_memory_allocated_GiB": peak, "launches": launches}
+    emit(row)
+    failures = []
+    if row["rc"] != 0 or row["error"]:
+        failures.append(f"cli.main(stream) gave {row['rc']} {row['error']}")
+    if row["picks"] != row["picks_spr"]:
+        failures.append(f"picks {row['picks']} against the spr phase's "
+                        f"{row['picks_spr']}")
+    if row["defocus_max_diff_A"] != 0.0:
+        failures.append(f"defocus off the spr phase's by "
+                        f"{row['defocus_max_diff_A']} Å")
+    if not (row["classes"] == STREAM_CLASSES
+            and abs(row["occupancy_fraction_sum"] - 1.0) < 1e-6
+            and row["class_particles"] == sum(picks.values())):
+        failures.append(f"classes {row['classes']}, occupancies summing to "
+                        f"{row['occupancy_fraction_sum']} of "
+                        f"{row['class_particles']} particles")
+    if row["metadb_micrographs"] != len(names):
+        failures.append(f"the metadb holds {row['metadb_micrographs']} "
+                        "micrographs")
+    if not (ran.count("CTF estimation") == len(names)
+            and "movie alignment" not in ran and "particle picking" not in ran
+            and row["drift_unchanged"]):
+        failures.append(f"the restart ran {ran}")
+    if row["session_status"] != "stopped":
+        failures.append(f"session status {row['session_status']}")
+    if not (row["exported_micrographs"] == len(mics["micrographs"]["loop"][
+            "rlnMicrographName"]) == len(names)
+            and row["exported_picks"] == sum(picks.values())):
+        failures.append(f"export_session wrote {row['exported_micrographs']} "
+                        f"micrographs and {row['exported_picks']} picks")
+    if launches:
+        failures.append("stream launched shift_scored_match")
+    if failures:
+        raise RuntimeError("stream bars failed: " + "; ".join(failures))
+    return launches
+
+
+def phase_workflow(movies_dir, refined, fsc_ref, root):
+    """`cli.main(["workflow", "workflows/spa_tutorial.toml", ...])` on the
+    three movies: raw data -> preprocessing (spr, then extract) ->
+    refinement (FRM, 4 iterations) -> postprocessing. The asked arguments
+    (-data_path, -scope_pixel) and, appended to every block, the spr
+    phase's flags (its -detect_rad 45 overrides the file's 75),
+    -no_extract_inv, -model_path (spr_refine's 20 Å start) and the
+    reference's FRM protocol (FRM_ARGS, whose engine and iterations are
+    the file's), so the refinement is spr_refine's micrograph-contrast run.
+    Bars: every block rc 0 and the refined map's FSC(0.143) no worse than
+    one shell above that run's. Reports the wall per block. Returns the
+    kernel launches (0)."""
+    import torch
+
+    from pyp_tpu_torch import cli
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.tools import e2e_spr
+    from pyp_tpu_torch.tools.e2e_spa import FRM_ARGS, SLICE
+
+    work = os.path.join(root, "workflow")
+    os.makedirs(work)
+    argv = (["workflow", os.path.join(ROOT, "workflows", "spa_tutorial.toml"),
+             "-data_path", os.path.join(movies_dir, "movie_*.mrc"),
+             "-scope_pixel", str(SLICE["pixel"])]
+            + e2e_spr.SPR_ARGS[1:] + FRM_ARGS[1:]
+            + ["-no_extract_inv", "-model_path",
+               os.path.join(refined, "initial_model.mrc")])
+    blocks = []
+    real_main = cli.main
+
+    def timed_main(args, device="cuda"):
+        rc, wall = _sync_s(lambda: real_main(args, device=device))
+        blocks.append({"mode": args[0], "rc": rc, "seconds": wall})
+        return rc
+
+    kernels.shift_scored_match.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cli.main = timed_main      # the runner calls cli.main for each block
+    try:
+        out, wall = _cli_json(argv, work, last=True)
+    finally:
+        cli.main = real_main
+    blocks = [b for b in blocks if b["mode"] != "workflow"]
+    with open(os.path.join(work, "maps", "dataset_r01_history.json")) as f:
+        history = json.load(f)
+    fsc = float(history[-1]["resolution"])
+    row = {"phase": "workflow", "seconds": wall, "blocks": out["blocks"],
+           "block_walls": blocks, "iterations": [h["iteration"]
+                                                 for h in history],
+           "fsc143_A": fsc, "fsc143_spr_refine_A": fsc_ref,
+           "one_shell_A": _one_shell_A(fsc_ref),
+           "max_memory_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": kernels.shift_scored_match.launches}
+    emit(row)
+    modes = [b["mode"] for b in out["blocks"]]
+    if modes != ["params", "spr", "refine", "postprocess"] or any(
+            b["rc"] for b in out["blocks"] + blocks):
+        raise RuntimeError(f"workflow blocks {out['blocks']} ({blocks})")
+    if not fsc <= fsc_ref + row["one_shell_A"]:
+        raise RuntimeError(f"workflow: FSC {fsc:.3f} Å against spr_refine's "
+                           f"{fsc_ref:.3f} Å")
+    if row["launches"]:
+        raise RuntimeError("workflow launched shift_scored_match")
+    return row["launches"]
+
+
+def _lzw_encode(data: bytes) -> bytes:
+    """A minimal TIFF-LZW encoder (a copy of the test encoder of
+    tests/test_native.py), to write the check's movie."""
+    CLEAR, EOI = 256, 257
+    table = {bytes([i]): i for i in range(256)}
+    next_code, code_size = 258, 9
+    out_bits = [(CLEAR, code_size)]
+    w = b""
+    for ch in data:
+        wc = w + bytes([ch])
+        if wc in table:
+            w = wc
+        else:
+            out_bits.append((table[w], code_size))
+            if next_code < 4096:
+                table[wc] = next_code
+                next_code += 1
+                if next_code + 1 > (1 << code_size) and code_size < 12:
+                    code_size += 1
+            else:
+                out_bits.append((CLEAR, code_size))
+                table = {bytes([i]): i for i in range(256)}
+                next_code, code_size = 258, 9
+            w = bytes([ch])
+    if w:
+        out_bits.append((table[w], code_size))
+    out_bits.append((EOI, code_size))
+    buf = cnt = 0
+    out = bytearray()
+    for code, size in out_bits:
+        buf = (buf << size) | code
+        cnt += size
+        while cnt >= 8:
+            out.append((buf >> (cnt - 8)) & 0xFF)
+            cnt -= 8
+    if cnt:
+        out.append((buf << (8 - cnt)) & 0xFF)
+    return bytes(out)
+
+
+def _write_lzw_tiff(path, strips, pages, shape, rows_per_strip):
+    """A classic little-endian TIFF of `pages` int8 pages (SampleFormat 2)
+    of `shape`, each made of the same LZW `strips` of `rows_per_strip`
+    rows."""
+    import struct
+
+    ny, nx = shape
+    body, offsets = b"".join(strips), []
+    pos = 8
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s)
+    n = len(strips)
+    # strip offsets and byte counts as LONG arrays after the strips
+    arrays = (struct.pack(f"<{n}I", *offsets)
+              + struct.pack(f"<{n}I", *map(len, strips)))
+    ifd_at = pos + len(arrays)
+    ifds = b""
+    for i in range(pages):
+        tags = [(256, 4, 1, nx), (257, 4, 1, ny), (258, 3, 1, 8),
+                (259, 3, 1, 5),
+                (273, 4, n, offsets[0] if n == 1 else pos),
+                (278, 4, 1, rows_per_strip),
+                (279, 4, n, len(strips[0]) if n == 1 else pos + 4 * n),
+                (339, 3, 1, 2)]
+        nxt = ifd_at + len(ifds) + 2 + 12 * len(tags) + 4
+        ifds += struct.pack("<H", len(tags)) + b"".join(
+            struct.pack("<HHII", t, typ, cnt, v) for t, typ, cnt, v in tags
+        ) + struct.pack("<I", nxt if i + 1 < pages else 0)
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, ifd_at) + body + arrays
+                + ifds)
+
+
+def phase_tiff_lzw():
+    """A 4 x 1024² int8 LZW TIFF movie (counts ~ Poisson(1), four strips of
+    256 rows per frame; the four frames are one frame encoded once, the
+    encoder being pure Python) read by `io/tiff` through the native pypio
+    library; the Python decoder's route on the frame's first strip alone
+    (a file of that one strip: the pure-Python decoder takes tens of
+    seconds for a frame). MB/s of each route, arrays equal to the frames.
+    Fails where the library did not build."""
+    from pyp_tpu_torch.io import native, tiff
+
+    rng = np.random.RandomState(0)
+    frame = rng.poisson(1.0, (1024, 1024)).astype(np.int8)
+    rows = 256
+    with tempfile.TemporaryDirectory() as d:
+        movie, strip = os.path.join(d, "movie.tif"), os.path.join(d, "strip.tif")
+        strips, encode_s = _sync_s(lambda: [
+            _lzw_encode(frame[r:r + rows].tobytes())
+            for r in range(0, 1024, rows)])
+        _write_lzw_tiff(movie, strips, 4, frame.shape, rows)
+        _write_lzw_tiff(strip, strips[:1], 1, (rows, 1024), rows)
+        size = os.path.getsize(movie)
+        if not native.available():
+            raise RuntimeError("the native pypio library did not build")
+        before = dict(tiff.LZW_ROUTES)
+        fast, native_s = _sync_s(lambda: tiff.read(movie))
+        fast_strip = tiff.read(strip)
+        with native.python_only():
+            slow, python_s = _sync_s(lambda: tiff.read(strip))
+    routes = {k: tiff.LZW_ROUTES[k] - before[k] for k in before}
+    row = {"phase": "tiff_lzw", "frames": list(fast.shape),
+           "file_bytes": size, "encode_s": encode_s,
+           "native_s": native_s, "native_MB_per_s": fast.nbytes / 1e6 / native_s,
+           "python_s": python_s, "python_bytes": slow.nbytes,
+           "python_MB_per_s": slow.nbytes / 1e6 / python_s,
+           "routes": routes,
+           "equal": bool(np.array_equal(fast, np.stack([frame] * 4))
+                         and np.array_equal(slow, frame[None, :rows])
+                         and np.array_equal(fast_strip, slow))}
+    emit(row)
+    if routes != {"native": 17, "python": 1} or not row["equal"]:
+        raise RuntimeError(f"LZW TIFF read: routes {routes}, equal "
+                           f"{row['equal']}")
+
+
 def phase_preprocess(volume):
     """The preprocessing phases on one movie set in a temporary directory,
-    the SPA side of the models, then polishing. Returns the kernel
-    launches of the `polish` and models runs."""
+    the SPA side of the models, the streaming slice's phases (interop,
+    stream, workflow), then polishing. Returns the kernel launches of the
+    `polish`, models, interop, stream and workflow runs."""
     with tempfile.TemporaryDirectory() as root:
         movies_dir = os.path.join(root, "movies")
         project = os.path.join(root, "project")
         truth = phase_spr_synthesize(volume, movies_dir)
-        phase_spr(movies_dir, project, truth)
+        spr_s_per_movie = phase_spr(movies_dir, project, truth)
         phase_spr_layers(movies_dir)
         phase_extract(project, truth)
         models = phase_models_spr(project, movies_dir, truth, root)
         refined, fsc = phase_spr_refine(project, volume, root)
+        launches = {
+            "interop": phase_interop(refined, fsc, root),
+            "stream": phase_stream(movies_dir, project, root,
+                                   spr_s_per_movie),
+            "workflow": phase_workflow(movies_dir, refined, fsc, root)}
         return {"polish": phase_polish(project, refined, movies_dir, fsc,
-                                       volume), "models_spr": models}
+                                       volume), "models_spr": models,
+                **launches}
 
 # ---------------------------------------------------------------------------
 # tomography: tools/e2e_tomo's series through cli.main(["tomo", ...])
@@ -2797,6 +3358,7 @@ def main():
     smi = phase_device()
     phase_build()
     k = phase_kernel()
+    phase_tiff_lzw()
     data, init = phase_synthesize()
     launches = phase_slice(data, init)
     phase_frm_polar(data)

@@ -4,10 +4,10 @@ Mirrors `pyp_tpu`'s layout and function names module by module, so each
 function's JAX counterpart is easy to find; `pyp_tpu` stays the reference
 the port is tested against. The package imports `torch` and never `jax`,
 and nothing of `pyp_tpu` either: it keeps its own copies of the JAX-free
-layers it needs (`io.mrc`, `io.cistem`, `io.pdb`, `io.metadata`, `io.tiff`,
-`io.eer`, `io.dm`, the STAR reader, `config`, `utils.log`/`timer`,
-`stream.web`, `sched`, and `cli`'s project parameters), whose on-disk
-formats stay compatible, so a run resumes across the two packages.
+layers it needs (`config`, the `io` codecs, `utils`, `stream.web`,
+`stream.params`, `stream.metadb`, `sched`, and `cli`'s project
+parameters), whose on-disk formats stay compatible, so a run resumes
+across the two packages.
 
 Ported: SPA preprocessing (`pipeline.spr`: movies through frame alignment
 `ops.motion`, CTF estimation `ops.ctf_fit`, picking `ops.pick` and
@@ -26,7 +26,11 @@ FSC, sharpening, local resolution), `fsc` and `mask`; and tomography
 (`pipeline.tomo`, the `tomo` mode: tilt-series alignment, per-tilt CTF,
 WBP/SART reconstruction, denoising, segmentation and 3D picking over
 `ops.tomo`, `ops.template_match`, `ops.filament` and
-`ops.denoise_classic`). The entry points
+`ops.denoise_classic`); the streaming session daemon (`stream.daemon`,
+the `stream` mode: movies preprocessed as they arrive, 2D classes kept
+up to date, flag files and a metadata store for the web platform), the
+workflow runner (`sched.workflow`) and the interchange modes (RELION,
+FREALIGN, Warp, EMAN2, crYOLO and IMOD files). The entry points
 (`cli.main`, `pipeline.spr.process_micrograph`, `extract_stack`, the
 alignment, CTF-fit, picking and extraction functions of `ops`,
 `pipeline.refine.refine_loop`, `refinement_iteration`,
@@ -39,13 +43,17 @@ and the tomography ops) run on the card unless the caller passes
 
 Layout:
   pyp_tpu_torch.config      — parameter schema, CLI flags, project file
-  pyp_tpu_torch.io          — MRC, .cistem and PDB codecs, the STAR reader,
-                              the per-item metadata bundles, the TIFF,
-                              EER and DM3/DM4 movie readers, .mdoc, IMOD
+  pyp_tpu_torch.io          — MRC, .cistem and PDB codecs, STAR files,
+                              RELION particle / tomogram stars, FREALIGN
+                              .par, Warp .tomostar, EMAN2 HDF / LST, the
+                              per-item metadata bundles, the TIFF (LZW
+                              through the native pypio library), EER
+                              and DM3/DM4 movie readers, .mdoc, IMOD
                               .xf / point models, coordinate files
-  pyp_tpu_torch.utils       — logging, timers
-  pyp_tpu_torch.stream      — the web platform's RPC client
-  pyp_tpu_torch.sched       — job graphs and the local executor
+  pyp_tpu_torch.utils       — logging, timers, log mirroring and mail
+  pyp_tpu_torch.stream      — the session daemon, its params file and
+                              metadata store, the web platform's client
+  pyp_tpu_torch.sched       — job graphs, the local executor, workflows
   pyp_tpu_torch.core        — geometry, CTF model, FFT helpers, filters, FSC
   pyp_tpu_torch.ops         — motion correction, CTF fitting, picking,
                               extraction, Fourier-slice operators, FRM,
@@ -55,15 +63,16 @@ Layout:
                               kernels and their build helper
   pyp_tpu_torch.postprocess — masks, the corrected FSC, sharpening, local
                               resolution
-  pyp_tpu_torch.analysis    — score shaping, model fitting, plots, saved
-                              micrograph selections
+  pyp_tpu_torch.analysis    — score shaping, model fitting, plots, item
+                              filters and selections, the HTML report
   pyp_tpu_torch.pipeline    — preprocessing (spr), tomography (tomo) and
                               the refinement loop
   pyp_tpu_torch.tools       — synthetic datasets with ground truth
                               (e2e_spa, e2e_spr, e2e_class, e2e_tomo),
                               the refine profiler
   pyp_tpu_torch.state       — state exchange with the JAX package
-  pyp_tpu_torch.cli         — the ported modes (cli.PORTED)
+  pyp_tpu_torch.cli         — the ported modes (cli.PORTED: all but
+                              `worker`)
 """
 
 from __future__ import annotations

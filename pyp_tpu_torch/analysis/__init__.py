@@ -1,2 +1,2 @@
-"""Particle-table analysis, model fitting and plots (torch port of
-pyp_tpu/analysis)."""
+"""Particle-table analysis, model fitting, plots, item filters and the
+HTML project report (torch port of pyp_tpu/analysis)."""

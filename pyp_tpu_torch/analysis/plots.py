@@ -1,11 +1,12 @@
-"""Diagnostic plots of the SPA path — the port of `plot_ctf_fit`,
-`plot_drift`, `plot_fsc`, `plot_guinier`, `plot_iteration_changes`,
-`plot_occupancy_history`, `histogram_particle_scores`,
-`plot_tilt_series_panel` and `plot_local_trajectories` of
-pyp_tpu/analysis/plots.py.
+"""Diagnostic plots — the port of pyp_tpu/analysis/plots.py: CTF fits,
+drift, FSC and Guinier curves, iteration changes, occupancy histories,
+score histograms, tilt-series panels, local trajectories, angular and
+defocus distributions, class montages, dataset time series and volume
+montages.
 matplotlib is optional: each function imports it when called and raises
 ImportError where it is missing, which callers turn into a warning and a
-skipped plot."""
+skipped plot. `write_bild_angular_distribution` writes text and needs
+no matplotlib."""
 
 from __future__ import annotations
 
@@ -232,4 +233,144 @@ def plot_local_trajectories(coords, local_shifts, shape, out_path,
     ax.set_title(f"local trajectories (×{scale:g})", fontsize=9)
     fig.tight_layout()
     fig.savefig(out_path, dpi=110)
+    plt.close(fig)
+
+
+def plot_angular_distribution(phi, theta, out_path):
+    """Mollweide-projected heat map of viewing directions."""
+    plt = _pyplot()
+    phi = np.radians(np.asarray(phi) % 360) - np.pi
+    theta = np.radians(np.asarray(theta))
+    lat = np.pi / 2 - theta
+    fig = plt.figure(figsize=(7, 4))
+    ax = fig.add_subplot(111, projection="mollweide")
+    h = ax.hexbin(phi, lat, gridsize=30, mincnt=1, cmap="viridis")
+    fig.colorbar(h, ax=ax, shrink=0.7, label="particles")
+    ax.set_title("angular distribution")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+
+
+def plot_defocus_histogram(df1, df2, out_path):
+    """Histogram of the micrographs' mean defocus (µm)."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.hist(0.5 * (np.asarray(df1) + np.asarray(df2)) / 1e4, bins=40)
+    ax.set_xlabel("defocus (µm)")
+    ax.set_ylabel("micrographs")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+
+
+def class_montage(class_avgs, out_path, columns: int = 10, occupancy=None):
+    """Contact sheet of 2D class averages (the reference's contact_sheet),
+    each scaled between its 1st and 99th percentile, with the occupancy
+    written on it; returns the sheet."""
+    plt = _pyplot()
+    avgs = np.asarray(class_avgs)
+    K, n, _ = avgs.shape
+    cols = min(columns, K)
+    rows = (K + cols - 1) // cols
+    sheet = np.zeros((rows * n, cols * n), dtype=np.float32)
+    for k in range(K):
+        r, c = divmod(k, cols)
+        img = avgs[k]
+        lo, hi = np.percentile(img, [1, 99])
+        sheet[r * n:(r + 1) * n, c * n:(c + 1) * n] = np.clip(
+            (img - lo) / max(hi - lo, 1e-6), 0, 1)
+    fig, ax = plt.subplots(figsize=(cols, rows))
+    ax.imshow(sheet, cmap="gray", interpolation="nearest")
+    if occupancy is not None:
+        for k in range(K):
+            r, c = divmod(k, cols)
+            ax.text(c * n + 2, r * n + 10, f"{int(occupancy[k])}",
+                    color="yellow", fontsize=7)
+    ax.axis("off")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=150)
+    plt.close(fig)
+    return sheet
+
+
+def write_bild_angular_distribution(phi, theta, out_path, radius: float = 50.0):
+    """ChimeraX .bild file of the viewing-direction density (the
+    reference's par2bild): the views binned on a 500-point Fibonacci
+    sphere, one coloured cylinder per occupied bin."""
+    import torch
+
+    from pyp_tpu_torch.core.geometry import euler_to_matrix
+
+    phi = torch.as_tensor(np.asarray(phi, dtype=np.float32))
+    theta = torch.as_tensor(np.asarray(theta, dtype=np.float32))
+    R = euler_to_matrix(phi, theta, torch.zeros_like(phi)).numpy()
+    views = R[:, 2, :]
+    k = 500
+    idx = np.arange(k) + 0.5
+    ga = np.pi * (1 + 5**0.5) * idx
+    z = 1 - 2 * idx / k
+    r = np.sqrt(1 - z * z)
+    seeds = np.stack([r * np.cos(ga), r * np.sin(ga), z], axis=1)
+    counts = np.bincount(np.argmax(views @ seeds.T, axis=1), minlength=k)
+    cmax = max(counts.max(), 1)
+    with open(out_path, "w") as f:
+        f.write(".comment pyp_tpu angular distribution\n")
+        for s, cnt in zip(seeds, counts):
+            if cnt == 0:
+                continue
+            h = cnt / cmax
+            f.write(f".color {h:.2f} 0 {1 - h:.2f}\n")
+            tip = s * radius * (1.0 + 0.3 * h)
+            base = s * radius
+            f.write(
+                f".cylinder {base[0]:.2f} {base[1]:.2f} {base[2]:.2f} "
+                f"{tip[0]:.2f} {tip[1]:.2f} {tip[2]:.2f} {0.5 + h:.2f}\n")
+
+
+def plot_dataset_timeseries(items, out_path,
+                            keys=("defocus", "ctf_res", "drift",
+                                  "particles")):
+    """Dataset-wide per-item metric traces in acquisition order (the
+    reference's plot_dataset, the web Table-view time series).
+
+    items: {name: {metric: value}} as report.collect_project gives them."""
+    names = sorted(items)
+    present = [k for k in keys if any(k in items[n] for n in names)]
+    if not present:
+        return
+    plt = _pyplot()
+    fig, axes = plt.subplots(len(present), 1,
+                             figsize=(8, 1.9 * len(present)), sharex=True)
+    axes = np.atleast_1d(axes)
+    for ax, k in zip(axes, present):
+        xs = [i for i, n in enumerate(names) if k in items[n]]
+        ys = [items[n][k] for n in names if k in items[n]]
+        ax.plot(xs, ys, ".-", ms=3, lw=0.7)
+        ax.set_ylabel(k, fontsize=8)
+    axes[-1].set_xlabel("item (acquisition order)")
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=110)
+    plt.close(fig)
+
+
+def volume_montage(volume, out_path, axis: int = 0, n_slices: int = 9):
+    """Slice montage of a 3D map (the reference's map montage)."""
+    plt = _pyplot()
+    vol = np.asarray(volume)
+    n = vol.shape[axis]
+    picks = np.linspace(n // 6, n - n // 6 - 1, n_slices).astype(int)
+    cols = int(np.ceil(np.sqrt(n_slices)))
+    rows = int(np.ceil(n_slices / cols))
+    fig, axes = plt.subplots(rows, cols, figsize=(2.2 * cols, 2.2 * rows))
+    axes = np.atleast_1d(axes).ravel()
+    for ax in axes:
+        ax.axis("off")
+    for k, z in enumerate(picks):
+        sl = np.take(vol, z, axis=axis)
+        lo, hi = np.percentile(sl, [1, 99])
+        axes[k].imshow(sl, cmap="gray", vmin=lo, vmax=hi)
+        axes[k].set_title(f"{z}", fontsize=7)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
     plt.close(fig)

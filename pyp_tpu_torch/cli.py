@@ -1,7 +1,5 @@
-"""Command-line entry point of the port: the `spr`, `tomo`, `extract`,
-`gain`, `refine`, `classify2d`, `classify3d`, `clean`, `kselection`,
-`postprocess`, `fsc`, `mask`, `csp`, `polish`, `sva`, `sprtrain`,
-`tomotrain`, `mine`, `prism` and `heterogeneity` modes on a CUDA device.
+"""Command-line entry point of the port: every mode of the JAX package
+but `worker` (cli.PORTED), the ones with device work on a CUDA device.
 
     python -m pyp_tpu_torch.cli spr -data_path 'movies/*.mrc' -scope_pixel 1.0 ...
     python -m pyp_tpu_torch.cli tomo -data_path 'series/*.mrc' -scope_pixel 1.0 ...
@@ -24,6 +22,17 @@
     python -m pyp_tpu_torch.cli mine -mine_clusters 8 ...
     python -m pyp_tpu_torch.cli prism -prism_steps 300 ...
     python -m pyp_tpu_torch.cli heterogeneity [-het_eval] ...
+    python -m pyp_tpu_torch.cli stream -data_path 'watch/*.mrc' [-class2d_enable] ...
+    python -m pyp_tpu_torch.cli workflow workflows/spa_tutorial.toml -data_path ...
+    python -m pyp_tpu_torch.cli import_star particles.star
+    python -m pyp_tpu_torch.cli export_star [-data_mode tomo]
+    python -m pyp_tpu_torch.cli export_session
+    python -m pyp_tpu_torch.cli filter -filter_criteria "ctf_res<8" -filter_name good
+    python -m pyp_tpu_torch.cli report
+    python -m pyp_tpu_torch.cli byp picks.mod|mic.box|particles.star|stack.cistem ...
+    python -m pyp_tpu_torch.cli boxedit -edit_name mic -edit_remove_circle y:x:r
+    python -m pyp_tpu_torch.cli tomoedit -edit_name ts -edit_exclude_tilts 0:40
+    python -m pyp_tpu_torch.cli params
 
 `spr` preprocesses every movie `-data_path` matches (frame alignment, CTF
 estimation, picking) into one `<name>.meta.npz` bundle each, resuming
@@ -64,9 +73,20 @@ its bundle (prism_score, prism_embeddings.npz; `spr -prism_enable` runs
 it after the merge); `heterogeneity` trains the latent model on stack.mrc
 at its refined poses, or on the tilt stacks `csp -csp_save_stacks`
 writes, and decodes volumes along a principal direction (het_model.npz,
-heterogeneity_latents.npz, het_volume_XX.mrc). Each writes the files the
-JAX package's mode writes. Every other mode is not ported yet and exits
-non-zero; SLURM submission raises NotImplementedError by name.
+heterogeneity_latents.npz, het_volume_XX.mrc). `stream` runs the
+session daemon (`stream/daemon`): it watches -data_path, preprocesses
+each new movie as `spr` does, re-classifies the accumulated particles in
+2D, and obeys the pypd.stop/restart/clear flag files; `workflow` runs a
+.toml block sequence through these modes (`sched/workflow`). The host
+modes do no device work: `import_star` / `export_star` carry RELION
+particle, tomogram and motion stars in and out of the project,
+`export_session` writes a session's RELION micrographs and autopick stars,
+`filter` saves a selection of items by metric criteria, `report` writes
+<dataset>_report.html, `byp` converts box, model, star, cbox, HDF and
+.cistem files, `boxedit` and `tomoedit` edit a bundle's picks and tilts,
+and `params` prints the project's parameters. Each writes the files the
+JAX package's mode writes. `worker` is not ported and exits non-zero;
+SLURM submission raises NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -1572,6 +1592,615 @@ def _het_report(latents, model, params, pixel, stacks, dev):
     return 0
 
 
+def mode_import_star(argv, device="cuda"):
+    """RELION star -> project metadata. SPA particles.star -> stack.cistem;
+    tomo stars (reference TomoStar2meta[V5], pyp_metadata.py:763+):
+    tomograms.star -> per-series tlt/xf/ctf metadata, RELION5 particles
+    star -> <name>.next coords + eulers tables. Host only: `device` is
+    accepted for the common signature."""
+    from pyp_tpu_torch.io import cistem, relion, relion_tomo
+
+    # reference-compatible flags (rlp -import_refine_star/-import_tomo_star,
+    # docs/cli/*_import_export.rst) join any positional star paths
+    flagged = []
+    ip = _project_params(argv, persist=False)
+    for key in ("import_refine_star", "import_tomo_star",
+                "import_motion_star"):
+        v = str(ip.get(key) or "")
+        if v:
+            flagged.append(v)
+    positional = [a for a in argv if not a.startswith("-")
+                  and a.endswith(".star")]
+    paths = [p for p in positional if p not in flagged] + flagged
+    if not paths:
+        logger.error("usage: import_star <file.star> [more.star ...] or "
+                     "-import_refine_star/-import_tomo_star <file.star>")
+        return 2
+
+    # declared format (import_format, the csp_tomo_free block field): the
+    # dispatch below is content-based; a declared format that disagrees
+    # with the detected one is surfaced instead of silently honored
+    declared = str(ip.get("import_format") or "none")
+    declared_ver = str(ip.get("import_tomo_star_version") or "")
+    report = {}
+    for path in paths:
+        text = Path(path).read_text()
+        detected = ("tomo" if "_rlnTomoProjX" in text else "spa")
+        if declared_ver:
+            # declared RELION star dialect (import tab tomo_star_version):
+            # content detection wins, disagreement is surfaced
+            ver_detected = "5" if ("_rlnTomoName" in text
+                                   or "_rlnTomoProjX" in text) else "4"
+            if declared_ver.lstrip("relion") not in ("", ver_detected):
+                logger.warning(
+                    "import_tomo_star_version=%s declared but %s uses the "
+                    "RELION %s tomo dialect — importing by content",
+                    declared_ver, path, ver_detected)
+        if declared not in ("none", "") and declared.lower() not in (
+                "relion", "relion5", "star", detected):
+            logger.warning("import_format=%s declared but %s looks like a "
+                           "%s star file — importing by content", declared,
+                           path, detected)
+        if "_rlnTomoProjX" in text:
+            series, gparams = relion_tomo.import_tomograms_star(path)
+            from pyp_tpu_torch.io.metadata import ItemMetadata
+
+            for s in series:
+                meta = ItemMetadata(s["name"], ".", mode="tomo").load()
+                meta["tlt"] = s["tilt_angles"]
+                T = len(s["tilt_angles"])
+                xf = np.zeros((T, 3), dtype=np.float32)
+                meta["xf"] = xf
+                ctf = np.zeros((T, 6), dtype=np.float32)
+                ctf[:, :2] = s["defocus"]
+                ctf[:, 2] = s["astig_angle"]
+                meta["ctf"] = ctf
+                meta.save()
+            cfg.update_parameters(".", gparams)
+            report[path] = {"tomograms": len(series), **{
+                k: v for k, v in gparams.items() if k.startswith("scope")}}
+        elif "_rlnTomoName" in text:
+            parts = relion_tomo.import_particles_star_v5(path)
+            np.savez("imported_particles.npz", **{
+                k: v for k, v in parts.items() if k != "optics"})
+            report[path] = {"particles": len(parts["tomo_names"]),
+                            "file": "imported_particles.npz"}
+        elif "_rlnAccumMotionTotal" in text:
+            # corrected_micrographs star (-import_motion_star): record
+            # RELION's accumulated-motion stats per micrograph — they
+            # become filterable metadata metrics. Micrographs absent from
+            # the project are reported, not materialized as empty bundles.
+            from pyp_tpu_torch.io import star as star_mod
+            from pyp_tpu_torch.io.metadata import ItemMetadata
+
+            blocks = star_mod.read(path)
+            loop = next(b["loop"] for b in blocks.values()
+                        if "rlnMicrographName" in b["loop"])
+            names = [Path(m).stem for m in loop["rlnMicrographName"]]
+            have_project_items = any(Path(".").glob("*.meta.npz"))
+            matched, unmatched = 0, 0
+            for i, nm in enumerate(names):
+                meta = ItemMetadata(nm, ".", mode="spr")
+                if have_project_items and not meta.load().exists():
+                    unmatched += 1
+                    continue
+                meta.load()
+                for col, key in (("rlnAccumMotionTotal", "motion_total"),
+                                 ("rlnAccumMotionEarly", "motion_early"),
+                                 ("rlnAccumMotionLate", "motion_late")):
+                    if col in loop:
+                        meta.scalars[key] = float(loop[col][i])
+                meta.save()
+                matched += 1
+            report[path] = {"micrographs": matched, "unmatched": unmatched}
+        elif "_rlnCoordinateX" not in text and "_rlnAngleRot" not in text:
+            report[path] = {"skipped": "unrecognized star (no particles, "
+                            "tomograms, or motion table)"}
+        else:
+            table, optics = relion.import_star(path)
+            cistem.write_parameters(table, "stack.cistem")
+            report[path] = {"particles": table.n_rows, "optics": optics}
+    print(json.dumps(report, default=str))
+    return 0
+
+
+def mode_export_star(argv, device="cuda"):
+    """stack.cistem -> RELION particles.star (the export_star mode).
+    With -data_mode tomo, exports tomograms.star + RELION5 particles star
+    from the project's tilt-series metadata (the reference's meta2Star tomo
+    branch, pyp_metadata.py:1148). Host only: `device` is accepted for the
+    common signature."""
+    params = _project_params(argv)
+    from pyp_tpu_torch.io import cistem, relion
+
+    if str(params.get("data_mode") or "spr") == "tomo":
+        from pyp_tpu_torch.io import relion_tomo
+        from pyp_tpu_torch.io.metadata import ItemMetadata
+
+        series, parts = [], None
+        for meta_path in sorted(Path(".").glob("*.meta.npz")):
+            name = meta_path.name.replace(".meta.npz", "")
+            meta = ItemMetadata(name, ".", mode="tomo").load()
+            if not meta.is_done("tlt"):
+                continue
+            tlt = np.asarray(meta["tlt"]).reshape(-1)
+            T = len(tlt)
+            xf6 = np.zeros((T, 6), dtype=np.float32)
+            xf6[:, 0] = xf6[:, 3] = 1.0
+            if meta.is_done("xf"):
+                xfm = np.asarray(meta["xf"])
+                xf6[:, 4:6] = xfm[:, :2]
+            ctf = (np.asarray(meta["ctf"]) if meta.is_done("ctf")
+                   else np.zeros((T, 6), dtype=np.float32))
+            series.append({
+                "name": name, "tilt_angles": tlt, "xf": xf6,
+                "defocus": ctf[:, :2], "astig_angle": ctf[:, 2],
+                "order": np.arange(T, dtype=np.float32),
+                "image_dims": (int(params.get("tomo_rec_thickness") or 2048),
+                               int(params.get("tomo_rec_thickness") or 2048)),
+            })
+        if not series:
+            logger.error("no tilt-series metadata (*_meta.npz with tlt) found")
+            return 1
+        loc = Path(str(params.get("export_location") or "."))
+        loc.mkdir(parents=True, exist_ok=True)
+        rt_out = relion_tomo.export_tomograms_star(
+            series, params, str(loc / "tomograms.star"))
+        report = {"tomograms.star": len(series)}
+        if Path("imported_particles.npz").exists():
+            d = dict(np.load("imported_particles.npz", allow_pickle=True))
+            d["tomo_names"] = list(d["tomo_names"])
+            relion_tomo.export_particles_star_v5(
+                d, params, str(loc / "particles.star"))
+            report["particles.star"] = len(d["tomo_names"])
+        print(json.dumps(report))
+        return 0
+
+    table = cistem.read_parameters("stack.cistem")
+    loc = Path(str(params.get("export_location") or "."))
+    loc.mkdir(parents=True, exist_ok=True)
+    out = str(loc / "particles.star")
+    relion.export_star(
+        table, out, pixel_size=float(params["scope_pixel"]),
+        voltage=float(params["scope_voltage"]), cs=float(params["scope_cs"]),
+        w=float(params["scope_wgh"]),
+        image_name_fmt=str(params.get("export_image_fmt")
+                           or "{i}@stack.mrcs"),
+        optics_group=int(params.get("export_optics_group") or 1),
+    )
+    print(json.dumps({"particles": table.n_rows, "star": out}))
+    return 0
+
+
+def mode_params(argv, device="cuda"):
+    """Print the project's parameters (the project file updated with the
+    flags given). Host only: `device` is accepted for the common
+    signature."""
+    params = _project_params(argv)
+    print(json.dumps(params, indent=1, default=str))
+    return 0
+
+
+def mode_filter(argv, device="cuda"):
+    """Create a micrograph/tilt-series filter selection (the reference's
+    table-view Filters, docs/guide/filters.rst): evaluate metric criteria
+    over every item's metadata bundle, apply manual include/exclude
+    overrides, and save a selection downstream modes load via -filter_sel.
+
+      pyp_tpu_torch.cli filter -filter_criteria "ctf_res<8 drift<60" -filter_name good
+      pyp_tpu_torch.cli refine ... -filter_sel good
+
+    Host only: `device` is accepted for the common signature.
+    """
+    params = _project_params(argv)
+    from pyp_tpu_torch.analysis.filters import apply_filter, save_selection
+
+    mode = "tomo" if params.get("data_mode") == "tomo" else "spr"
+    crit = str(params.get("filter_criteria") or "")
+    inc = [t for t in str(params.get("filter_include") or "").replace(
+        ",", " ").split() if t]
+    exc = [t for t in str(params.get("filter_exclude") or "").replace(
+        ",", " ").split() if t]
+    kept, table = apply_filter(".", crit, mode=mode, include=inc,
+                               exclude=exc)
+    name = str(params.get("filter_name") or "filter1")
+    ds = str(params.get("data_set") or "dataset")
+    out = save_selection(f"{ds}_{name}.filter.json", kept, crit, table)
+    print(json.dumps({"filter": out, "kept": len(kept),
+                      "total": len(table), "criteria": crit}))
+    return 0
+
+
+def mode_byp(argv, device="cuda"):
+    """Box/model interop utilities (the reference's bin/run/byp):
+    dispatch on the input file's extension like the reference does.
+
+      byp picks.mod -extract_box 128      # mod2box: IMOD picks -> .box
+      byp mic.boxx                        # box2mod: .box/.boxx -> IMOD .mod
+      byp particles.star                  # relion2box: star -> .box per film
+      byp stack.mrc -to_hdf               # mrc stack -> EMAN2 HDF
+      byp stack.hdf                       # EMAN2 HDF -> mrc stack
+      byp stack.cistem                    # cistem2par: -> FREALIGN .par
+
+    Host only: `device` is accepted for the common signature.
+    """
+    if not argv or argv[0].startswith("-"):
+        logger.error("usage: byp <file.mod|.box|.boxx|.star> [params]")
+        return 2
+    src = Path(argv[0])
+    params = _project_params(argv[1:])
+    box = int(params.get("extract_box") or 128)
+    from pyp_tpu_torch.io import boxfiles, imod
+
+    scaling = float(params.get("convert_scaling") or 1.0)
+    zheight = float(params.get("convert_z") or 256)
+    depth = float(params.get("convert_depth") or 256)
+    if src.suffix == ".cistem":
+        # cistem2par: alignment table -> FREALIGN .par (the reference's
+        # parfile hand-off format); refine_parfile_compress writes .par.bz2
+        from pyp_tpu_torch.io import cistem as _cistem
+        from pyp_tpu_torch.io import parfile as _parfile
+
+        table = _cistem.read_parameters(src)
+        pf = _parfile.from_cistem_table(
+            table, variant=str(params.get("refine_metric") or "new")
+            .replace("cc3m", "new").replace("frealignx", "frealignx"))
+        out = src.with_suffix(
+            ".par.bz2" if params.get("refine_parfile_compress") else ".par")
+        _parfile.write(pf, out)
+        print(json.dumps({"mode": "cistem2par", "rows": table.n_rows,
+                          "output": str(out)}))
+        return 0
+    if src.suffix == ".cbox":
+        # crYOLO picks -> IMOD model (reference pyp_convert_coord
+        # cryolo2mod, analysis/geometry/pyp_convert_coord.py:83): rescale
+        # from the cryolo tomogram grid and re-center z on the pyp depth
+        centers, cbox_size, conf = boxfiles.read_cbox(src)
+        pts = centers / scaling
+        pts[:, 2] = pts[:, 2] - zheight / (2 * scaling) + depth / 2
+        out = src.with_suffix(".mod")
+        imod.write_point_model(out, pts)
+        boxfiles.write_spk(np.stack([pts[:, 2], pts[:, 1], pts[:, 0]], 1),
+                           src.with_suffix(".spk"))
+        print(json.dumps({"mode": "cryolo2mod", "picks": int(len(pts)),
+                          "mod": str(out)}))
+        return 0
+    if src.suffix == ".mod" and params.get("to_cbox"):
+        # IMOD model -> crYOLO picks (mod2cryolo,
+        # pyp_convert_coord.py:122): inverse of the transform above
+        pts = imod.read_points(src)            # (N, 3) x, y, z
+        xyz = np.array(pts[:, :3], dtype=np.float64)
+        xyz[:, 2] = xyz[:, 2] - depth / 2 + zheight / (2 * scaling)
+        xyz *= scaling
+        out = src.with_suffix(".cbox")
+        boxfiles.write_cbox(xyz, box * scaling, out)
+        print(json.dumps({"mode": "mod2cryolo", "picks": int(len(pts)),
+                          "cbox": str(out)}))
+        return 0
+    if src.suffix == ".mod":
+        pts = imod.read_points(src)            # (N, 3) x, y, z
+        coords_yx = np.stack([pts[:, 1], pts[:, 0]], axis=1)
+        out = src.with_suffix(".box")
+        boxfiles.write_box(coords_yx, box, out)
+        print(json.dumps({"mode": "mod2box", "picks": int(len(pts)),
+                          "box": str(out)}))
+        return 0
+    if src.suffix in (".box", ".boxx"):
+        if src.suffix == ".boxx":
+            coords_yx, boxsize, inside, kept = boxfiles.read_boxx(src)
+            sel = np.asarray(kept, dtype=bool)
+            coords_yx = np.asarray(coords_yx)[sel]
+        else:
+            coords_yx, boxsize = boxfiles.read_box(src)
+            coords_yx = np.asarray(coords_yx)
+        pts = np.stack([coords_yx[:, 1], coords_yx[:, 0],
+                        np.zeros(len(coords_yx))], axis=1)
+        out = src.with_suffix(".mod")
+        imod.write_point_model(out, pts)
+        print(json.dumps({"mode": "box2mod", "picks": int(len(pts)),
+                          "mod": str(out)}))
+        return 0
+    if src.suffix in (".hdf", ".h5"):
+        # EMAN2 -> mrc (refine/eman role)
+        from pyp_tpu_torch.io import eman, mrc
+
+        stack, apix = eman.read_hdf(src)
+        out = src.with_suffix(".mrc")
+        mrc.write(stack, out, pixel_size=apix)
+        print(json.dumps({"mode": "hdf2mrc", "images": int(len(stack)),
+                          "mrc": str(out)}))
+        return 0
+    if src.suffix in (".mrc", ".mrcs") and params.get("to_hdf"):
+        from pyp_tpu_torch.io import eman
+
+        out = eman.export_particles_hdf(
+            src, src.with_suffix(".hdf"),
+            apix=float(params.get("scope_pixel") or 1.0))
+        print(json.dumps({"mode": "mrc2hdf", "hdf": out}))
+        return 0
+    if src.suffix == ".star":
+        from pyp_tpu_torch.io import relion
+
+        table, _optics = relion.import_star(str(src))
+        films = np.asarray(table["particle_group"]).astype(int) \
+            if "particle_group" in table else np.zeros(table.n_rows, int)
+        n_files = 0
+        for f in np.unique(films):
+            sel = films == f
+            coords_yx = np.stack([
+                np.asarray(table["original_y_position"])[sel],
+                np.asarray(table["original_x_position"])[sel]], axis=1)
+            boxfiles.write_box(coords_yx, box, src.parent / f"film{f:04d}.box")
+            n_files += 1
+        print(json.dumps({"mode": "relion2box", "films": n_files,
+                          "particles": int(table.n_rows)}))
+        return 0
+    logger.error("byp: unsupported input %s", src.suffix)
+    return 2
+
+
+def mode_boxedit(argv, device="cuda"):
+    """Edit particle picks (the reference's boxedit,
+    bin/run/pyp:3612): remove picks inside a circle, threshold by score,
+    or replace with an imported .box file. Host only: `device` is accepted
+    for the common signature."""
+    params = _project_params(argv, persist=False)
+    from pyp_tpu_torch.io import boxfiles
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    name = str(params.get("edit_name") or "")
+    if not name:
+        logger.error("boxedit needs -edit_name <micrograph>")
+        return 2
+    meta = ItemMetadata(name, ".", mode="spr").load()
+    box = np.asarray(meta["box"]) if meta.is_done("box") else np.zeros((0, 3))
+    n0 = len(box)
+    imp = str(params.get("edit_import_box") or "")
+    if imp:
+        coords, _w = boxfiles.read_box(imp)   # (N, 2) centers (y, x)
+        box = np.concatenate([coords, np.ones((len(coords), 1))], axis=1)
+    spec = str(params.get("edit_remove_circle") or "")
+    if spec and len(box):
+        cy, cx, r = (float(v) for v in spec.replace(",", ":").split(":"))
+        d2 = (box[:, 0] - cy) ** 2 + (box[:, 1] - cx) ** 2
+        box = box[d2 > r * r]
+    thr = float(params.get("edit_min_score") or 0.0)
+    if thr > 0 and box.shape[1] > 2:
+        box = box[box[:, 2] >= thr]
+    meta["box"] = box.astype(np.float32)
+    meta.save()
+    print(json.dumps({"name": name, "picks_before": n0,
+                      "picks_after": int(len(box))}))
+    return 0
+
+
+def mode_tomoedit(argv, device="cuda"):
+    """Edit tilt-series metadata (the reference's tomoedit,
+    bin/run/pyp:3526): exclude tilts and/or drop virions; the resume-aware
+    pipeline honors the exclusion on the next run (with the relevant
+    _force flags). Host only: `device` is accepted for the common
+    signature."""
+    params = _project_params(argv, persist=False)
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    name = str(params.get("edit_name") or "")
+    if not name:
+        logger.error("tomoedit needs -edit_name <tilt-series>")
+        return 2
+    meta = ItemMetadata(name, ".", mode="tomo").load()
+    report = {"name": name}
+    spec = str(params.get("edit_exclude_tilts") or "")
+    if spec:
+        drop = sorted({int(t) for t in spec.replace(",", ":").split(":")})
+        keep = None
+        for key in ("tlt", "xf", "ctf", "order"):
+            if meta.is_done(key):
+                arr = np.asarray(meta[key])
+                if keep is None:
+                    keep = np.setdiff1d(np.arange(len(arr)), drop)
+                meta[key] = arr[keep[keep < len(arr)]]
+        report["excluded_tilts"] = drop
+    if params.get("edit_drop_virions"):
+        if meta.is_done("vir"):
+            meta["vir"] = np.zeros((0, 5), dtype=np.float32)
+        report["virions_dropped"] = True
+    meta.save()
+    print(json.dumps(report))
+    return 0
+
+
+def mode_export_session(argv, device="cuda"):
+    """Streaming session -> RELION export (the reference's `pex` /
+    export_session env mode, bin/run/pyp:5121 weak_meta2Star): for the
+    selected micrographs (a *.micrographs list file in the export dir,
+    else every processed item in the session), write
+    relion/<data_set>_micrographs.star (optics + per-micrograph CTF) and
+    per-micrograph _autopick.star coordinate files. Host only: `device` is
+    accepted for the common signature."""
+    params = _project_params(argv, persist=False)
+    from pyp_tpu_torch.io import star
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    session = str(params.get("data_parent") or ".")
+    sp = {**params, **(cfg.load_parameters(session) or {})}
+    data_set = str(sp.get("data_set") or "session")
+    mode = str(sp.get("data_mode") or "spr")
+
+    lists = sorted(glob.glob("*.micrographs"))
+    if lists:
+        wanted = [ln.strip() for ln in open(lists[0]) if ln.strip()]
+    else:
+        wanted = sorted(p.name[: -len(".meta.npz")] for p in
+                        Path(session).glob("*.meta.npz"))
+    out_dir = Path("relion")
+    out_dir.mkdir(exist_ok=True)
+
+    names, df1, df2, ang, fom = [], [], [], [], []
+    n_coords = 0
+    for name in wanted:
+        meta = ItemMetadata(name, session, mode=mode).load()
+        if "ctf" not in meta:
+            continue
+        c = np.atleast_2d(np.asarray(meta["ctf"]))
+        names.append(f"{name}.mrc")
+        df1.append(float(c[0, 0]))
+        df2.append(float(c[0, 1]))
+        ang.append(float(c[0, 2]))
+        fom.append(float(c[0, 4]) if c.shape[1] > 4 else float(c[0, 3]))
+        if "box" in meta and len(np.asarray(meta["box"])):
+            box = np.atleast_2d(np.asarray(meta["box"]))
+            star.write({"root": {"fields": {}, "loop": {
+                "rlnCoordinateX": box[:, 1].astype(np.float64),
+                "rlnCoordinateY": box[:, 0].astype(np.float64),
+                "rlnAutopickFigureOfMerit": (
+                    box[:, -1] if box.shape[1] > 2
+                    else np.ones(len(box))).astype(np.float64),
+            }}}, out_dir / f"{name}_autopick.star")
+            n_coords += len(box)
+    if not names:
+        logger.error("export_session: no processed micrographs with CTF "
+                     "under %s", session)
+        return 1
+    n = len(names)
+    star.write({
+        "optics": {"fields": {}, "loop": {
+            "rlnOpticsGroup": np.array([1]),
+            "rlnMicrographPixelSize": np.array([float(sp["scope_pixel"])]),
+            "rlnVoltage": np.array([float(sp["scope_voltage"])]),
+            "rlnSphericalAberration": np.array([float(sp["scope_cs"])]),
+            "rlnAmplitudeContrast": np.array([float(sp["scope_wgh"])]),
+        }},
+        "micrographs": {"fields": {}, "loop": {
+            "rlnMicrographName": np.array(names, dtype=object),
+            "rlnOpticsGroup": np.ones(n, dtype=np.int64),
+            "rlnDefocusU": np.array(df1),
+            "rlnDefocusV": np.array(df2),
+            "rlnDefocusAngle": np.array(ang),
+            "rlnCtfFigureOfMerit": np.array(fom),
+        }},
+    }, out_dir / f"{data_set}_micrographs.star")
+    print(json.dumps({"micrographs": n, "coordinates": n_coords,
+                      "star": str(out_dir / f"{data_set}_micrographs.star")}))
+    return 0
+
+
+def mode_report(argv, device="cuda"):
+    """Static HTML project report (the web dashboards' file-based
+    counterpart): per-item metric histograms + table, refinement FSC
+    curves, model-fit track — one self-contained <dataset>_report.html
+    (without matplotlib, its tables without figures). Host only: `device`
+    is accepted for the common signature."""
+    params = _project_params(argv, persist=False)
+    from pyp_tpu_torch.analysis.report import build_report
+
+    mode = "tomo" if params.get("data_mode") == "tomo" else "spr"
+    out = build_report(".", str(params.get("data_set") or "dataset"),
+                       mode=mode)
+    print(json.dumps({"report": out}))
+    return 0
+
+
+def mode_workflow(argv, device="cuda"):
+    """Run a pre-defined block sequence from a .toml workflow file (the
+    reference's Workflows, docs/guide/workflows.rst):
+
+      pyp_tpu_torch.cli workflow spa_tutorial.toml -data_path "/data/*.tif"
+
+    Flags after the file fill the workflow's `{ ask = true }` arguments and
+    are also appended to every block's invocation. Every block's mode runs
+    on `device`."""
+    from pyp_tpu_torch.sched.workflow import run_workflow
+
+    paths = [a for a in argv if not a.startswith("-")
+             and a.endswith(".toml")]
+    if not paths:
+        logger.error("usage: workflow <file.toml> [-arg value ...]")
+        return 2
+    def _is_number(tok):
+        try:
+            float(tok)
+            return True
+        except ValueError:
+            return False
+
+    overrides = {}
+    rest = [a for a in argv if a not in paths]
+    i = 0
+    while i < len(rest):
+        tok = rest[i]
+        if tok.startswith("-") and not _is_number(tok):
+            key = tok.lstrip("-")
+            nxt = rest[i + 1] if i + 1 < len(rest) else None
+            # a following token is this flag's value unless it is itself a
+            # flag (negative numbers are values, not flags)
+            if nxt is not None and (not nxt.startswith("-")
+                                    or _is_number(nxt)):
+                overrides[key] = nxt
+                i += 2
+                continue
+            overrides[key] = True
+        i += 1
+    report = run_workflow(paths[0], overrides, extra_argv=rest,
+                          device=device)
+    print(json.dumps({"workflow": paths[0], "blocks": report}))
+    return 0 if all(b["rc"] == 0 for b in report) else 1
+
+
+def mode_stream(argv, device="cuda"):
+    """Launch the on-the-fly session daemon (streampyp role): watch
+    data_path for new movies, process each, incrementally re-classify, on
+    `device`. SLURM submission of the daemon is not ported and raises by
+    name."""
+    params = _project_params(argv)
+    from pyp_tpu_torch.stream.daemon import SessionDaemon, SessionManager
+
+    sessions_dir = str(params.get("stream_sessions_dir") or "")
+    if sessions_dir:
+        # multi-session mode: one process multiplexes every
+        # {group}/{session}/session.toml under the root
+        mgr = SessionManager(
+            sessions_dir, defaults=params,
+            poll_interval=float(params.get("stream_poll_interval") or 5.0),
+            device=device)
+        max_iter = params.get("stream_max_iterations")
+        idle_exit = params.get("stream_idle_exit")
+        results = mgr.run(
+            max_iterations=int(max_iter) if max_iter else None,
+            idle_exit=int(idle_exit) if idle_exit else None)
+        print(json.dumps({k: len(v) for k, v in results.items()}))
+        return 0
+    pattern = params.get("data_path") or ""
+    if not pattern:
+        logger.error("stream needs -data_path <watch glob>")
+        return 1
+    if Path(pattern).is_dir():
+        # directory + filename pattern (reference movie tab pattern /
+        # source): the session watches <dir>/<movie_pattern>
+        pattern = str(Path(pattern)
+                      / str(params.get("movie_pattern") or "*.tif"))
+    if slurm_requested(params):
+        # the JAX package submits the daemon as one long scheduler job
+        raise NotImplementedError(
+            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
+            "the stream daemon is not ported; run it in this process")
+    daemon = SessionDaemon(
+        pattern, params,
+        poll_interval=float(params.get("stream_poll_interval") or 5.0),
+        classify_every=int(params.get("stream_classify_every") or 0),
+        n_classes=int(params.get("class_num") or 10),
+        device=device,
+    )
+    max_iter = params.get("stream_max_iterations")
+    idle_exit = params.get("stream_idle_exit")
+    daemon.run(
+        max_iterations=int(max_iter) if max_iter else None,
+        idle_exit=int(idle_exit) if idle_exit else None,
+    )
+    print(json.dumps({"processed": len(daemon.processed),
+                      "classified": daemon.class_result is not None}))
+    return 0
+
+
 PORTED = {"spr": mode_spr, "tomo": mode_tomo, "extract": mode_extract,
           "gain": mode_gain,
           "refine": mode_refine, "classify2d": mode_classify2d,
@@ -1581,20 +2210,47 @@ PORTED = {"spr": mode_spr, "tomo": mode_tomo, "extract": mode_extract,
           "polish": mode_polish, "sva": mode_sva,
           "sprtrain": mode_sprtrain, "tomotrain": mode_tomotrain,
           "mine": mode_mine, "prism": mode_prism,
-          "heterogeneity": mode_heterogeneity}
+          "heterogeneity": mode_heterogeneity,
+          "import_star": mode_import_star, "export_star": mode_export_star,
+          "params": mode_params, "filter": mode_filter, "byp": mode_byp,
+          "boxedit": mode_boxedit, "tomoedit": mode_tomoedit,
+          "export_session": mode_export_session, "report": mode_report,
+          "workflow": mode_workflow, "stream": mode_stream}
 
 
 def main(argv=None, device="cuda"):
     """Entry point: `main([mode, ...], device=...)` for the ported modes
-    (cli.PORTED). Returns the exit code; other modes are not yet ported
-    and return 2."""
+    (cli.PORTED). Returns the exit code; `worker`, not yet ported, and
+    unknown modes return 2. A project file that sets `notify_mongo_uri`
+    mirrors the log there, and `notify_email` mails the end of the spr,
+    tomo, refine, csp and classify3d modes, as in the JAX package."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0 if argv else 2
     mode, rest = argv[0], argv[1:]
     if mode in PORTED:
-        return PORTED[mode](rest, device=device)
+        # observability (the notify tab): log mirroring and completion mail
+        saved = cfg.load_parameters(".") or {}
+        mongo_uri = str(saved.get("notify_mongo_uri") or "")
+        if mongo_uri:
+            from pyp_tpu_torch.utils.notify import attach_mongo_sink
+
+            attach_mongo_sink(mongo_uri,
+                              webid=str(saved.get("notify_webid") or ""))
+        rc = PORTED[mode](rest, device=device)
+        email = str(saved.get("notify_email") or "")
+        rule = str(saved.get("notify_on") or "always")
+        if rule == "never" or (rule == "fail" and rc == 0):
+            email = ""
+        if email and mode in ("spr", "tomo", "refine", "csp", "classify3d"):
+            from pyp_tpu_torch.utils.notify import send_email
+
+            send_email(email, f"pyp_tpu {mode} "
+                       f"{'done' if rc == 0 else 'FAILED'}",
+                       f"mode={mode} rc={rc} cwd={Path.cwd()}",
+                       smtp_host=str(saved.get("notify_smtp") or "localhost"))
+        return rc
     if mode in MODES:
         logger.error("mode %r is not yet ported to pyp_tpu_torch", mode)
     else:

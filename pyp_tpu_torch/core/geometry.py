@@ -79,6 +79,36 @@ def matrix_to_euler(R):
     return phi * r2d, theta * r2d, psi * r2d
 
 
+
+def euler_zxz_to_zyz(z1, x, z2):
+    """ZXZ Euler angles (3DAVG/EMAN2 style, degrees) -> the ZYZ triplet
+    (phi, theta, psi) of the same rotation, as tensors."""
+    ref = next((a for a in (z1, x, z2) if isinstance(a, torch.Tensor)), None)
+    z1, x, z2 = (_as_angle(a, ref) for a in (z1, x, z2))
+    return matrix_to_euler(rot_z(z1) @ rot_x(x) @ rot_z(z2))
+
+
+def angular_grid(angular_step_deg: float, psi_step_deg: float | None = None,
+                 theta_max_deg: float = 180.0):
+    """Quasi-uniform global search grid over SO(3): projection directions
+    (theta, phi) on latitude rings with longitude spacing scaled by
+    1/sin(theta), psi sampled uniformly. Returns an (N, 3) float32 numpy
+    array of (phi, theta, psi) in degrees."""
+    if psi_step_deg is None:
+        psi_step_deg = angular_step_deg
+    thetas = np.arange(0.0, theta_max_deg + 1e-6, angular_step_deg)
+    dirs = []
+    for t in thetas:
+        st = np.sin(np.radians(max(t, 1e-3)))
+        n_phi = max(1, int(round(360.0 * st / angular_step_deg)))
+        if t in (0.0, 180.0):
+            n_phi = 1
+        for p in np.arange(n_phi) * (360.0 / n_phi):
+            dirs.append((p, t))
+    psis = np.arange(0.0, 360.0, psi_step_deg)
+    return np.array([(phi, th, ps) for (phi, th) in dirs for ps in psis],
+                    dtype=np.float32)
+
 # ---------------------------------------------------------------------------
 # point groups (host-side numpy; copied from pyp_tpu/core/geometry.py
 # because that module imports jax)
@@ -208,3 +238,42 @@ def region_of(points, bounds_min, bounds_max, grid):
     for d in range(points.shape[1]):
         flat = flat * grid[d] + idx[:, d]
     return flat
+
+
+def relion_tomo_projection_matrix(tilt_angle_deg, xf, thickness,
+                                  image_dims, tomo_x, tomo_y):
+    """Per-tilt 4x4 projection matrix (float64 numpy) in RELION's
+    tomogram convention: the IMOD-style alignment transform composed with
+    the single-axis tilt projection and RELION's yz-flipped tomogram frame,
+    the matrix tomograms.star carries in its `_rlnTomoProj{X,Y,Z,W}` rows.
+
+    tilt_angle_deg: stage tilt; xf: IMOD 6-element affine row
+    (a11, a12, a21, a22, dx, dy); thickness: unbinned tomogram Z;
+    image_dims: raw image (x, y); tomo_x/tomo_y: unbinned tomogram dims.
+    """
+    t = np.radians(float(tilt_angle_deg))
+    ocx = (image_dims[0] - 1.0) / 2.0
+    ocy = (image_dims[1] - 1.0) / 2.0
+    acx = (tomo_x - 1.0) / 2.0
+    acy = (tomo_y - 1.0) / 2.0
+
+    def m4(rows):
+        return np.asarray(rows, dtype=np.float64)
+
+    # RELION tomogram frame: y <- thickness-1-z, z <- y
+    yzflip = m4([[1, 0, 0, 0], [0, 0, -1, thickness - 1],
+                 [0, 1, 0, 0], [0, 0, 0, 1]])
+    to_imod_origin = m4([[1, 0, 0, -1], [0, 1, 0, -thickness / 2.0],
+                         [0, 0, 1, -1], [0, 0, 0, 1]])
+    # single-axis projection about y (IMOD tilt geometry), recentred on the
+    # aligned stack's centre
+    tilt_m = m4([[np.cos(t), -np.sin(t), 0, acx], [0, 0, 1, acy],
+                 [-np.sin(t), -np.cos(t), 0, 0], [0, 0, 0, 1]])
+    to_origin = m4([[1, 0, 0, -acx], [0, 1, 0, 0],
+                    [0, 0, 1, -acy], [0, 0, 0, 1]])
+    xf_m = m4([[xf[0], xf[1], 0, xf[4]], [xf[2], xf[3], 0, xf[5]],
+               [0, 0, 1, 0], [0, 0, 0, 1]])
+    p = m4([[1, 0, 0, ocx], [0, 1, 0, ocy], [0, 0, 1, 0], [0, 0, 0, 1]])
+    q = m4([[1, 0, 0, -acx], [0, 1, 0, -acy], [0, 0, 1, 0], [0, 0, 0, 1]])
+    affine = p @ np.linalg.inv(xf_m) @ q
+    return affine @ tilt_m @ to_origin @ to_imod_origin @ yzflip

@@ -1,6 +1,8 @@
-"""RELION STAR file reader (data blocks with loop_ tables) — the port's
-copy of the reader of pyp_tpu/io/star.py, which `read_mtf_curve` calls.
-A STAR file parses into
+"""RELION STAR file reader/writer (data blocks with loop_ tables).
+
+Functional equivalent of the reference's star import/export
+(pyp/inout/metadata/pyp_metadata.py:763+,
+cistem_star_file.py `to_star` :779). A STAR file parses into
 {block_name: {"fields": {key: str}, "loop": {column: np.ndarray}}}.
 """
 
@@ -65,3 +67,30 @@ def read(path) -> dict:
                     loop_rows.append(toks)
     flush()
     return blocks
+
+
+def write(blocks: dict, path):
+    with open(path, "w") as f:
+        f.write("# written by pyp_tpu\n\n")
+        for name, block in blocks.items():
+            f.write(f"data_{name if name != 'root' else ''}\n\n")
+            for k, v in block.get("fields", {}).items():
+                f.write(f"_{k}  {v}\n")
+            loop = block.get("loop", {})
+            if loop:
+                f.write("\nloop_\n")
+                cols = list(loop.keys())
+                for i, c in enumerate(cols):
+                    f.write(f"_{c} #{i + 1}\n")
+                arrays = [np.asarray(loop[c]) for c in cols]
+                n = len(arrays[0]) if arrays else 0
+                for r in range(n):
+                    toks = []
+                    for a in arrays:
+                        v = a[r]
+                        if isinstance(v, (np.floating, float)):
+                            toks.append(f"{v:.6f}")
+                        else:
+                            toks.append(str(v))
+                    f.write("  ".join(toks) + "\n")
+            f.write("\n")

@@ -5,8 +5,10 @@ core.py:913 readMoviefileandsave); here we read TIFF natively: classic TIFF
 (little/big endian), multi-page (one frame per IFD), grayscale 8/16-bit,
 strip-based, uncompressed (1), LZW (5), or Deflate (8/32946) compression,
 with horizontal-differencing predictor. Enough for cryo-EM movie data; no
-tiles, no color. The port's own copy of pyp_tpu/io/tiff.py; LZW strips are
-decoded in Python (the JAX package may hand them to its native library).
+tiles, no color. The port's own copy of pyp_tpu/io/tiff.py. LZW strips go
+to the native pypio library (`io.native`) as in the JAX package, and to
+the Python decoder where it is absent; `LZW_ROUTES` counts the strips
+each route decoded.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ TAG_ROWS_PER_STRIP = 278
 TAG_STRIP_COUNTS = 279
 TAG_PREDICTOR = 317
 TAG_SAMPLE_FORMAT = 339
+
+# LZW strips decoded by each route since import
+LZW_ROUTES = {"native": 0, "python": 0}
 
 _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
                11: 4, 12: 8, 16: 8, 17: 8, 18: 8}
@@ -137,6 +142,7 @@ def read(path, frames=None) -> np.ndarray:
             fmt = tags.get(TAG_SAMPLE_FORMAT, (1,))[0]
             offsets = tags[TAG_STRIP_OFFSETS]
             counts = tags[TAG_STRIP_COUNTS]
+            rows_per_strip = tags.get(TAG_ROWS_PER_STRIP, (height,))[0]
 
             if bits == 4:
                 # K3 counting movies (SerialEM writes 4-bit TIFF; the
@@ -160,7 +166,14 @@ def read(path, frames=None) -> np.ndarray:
                 if comp == 1:
                     pass
                 elif comp == 5:
-                    raw = _lzw_decode(raw)
+                    from pyp_tpu_torch.io import native
+
+                    row_bytes = ((width * bits + 7) // 8)
+                    expected = rows_per_strip * row_bytes
+                    decoded = native.lzw_decode(raw, expected)
+                    route = "python" if decoded is None else "native"
+                    LZW_ROUTES[route] += 1
+                    raw = decoded if decoded is not None else _lzw_decode(raw)
                 elif comp in (8, 32946):
                     raw = zlib.decompress(raw)
                 else:

@@ -1,11 +1,14 @@
-"""Build helper for the port's CUDA kernels (nvcc into a shared library
-with a plain C interface, loaded through ctypes).
+"""Build helper for the port's native code: shared libraries with a plain
+C interface, loaded through ctypes. Two routes: the CUDA kernels
+(`csrc/<name>.cu`, nvcc for sm_90a) and the host library
+(`csrc/<name>.cpp`, the host C++ compiler, g++ unless `CXX` names
+another).
 
-Each `csrc/<name>.cu` compiles at first use into
+Each source compiles at first use into
 `pyp_tpu_torch/_build/lib<name>-<hash>.so`, where `<hash>` is the source's
 content hash, so an edited source rebuilds and an unchanged one loads the
 library already built. Only the repository's own sources are compiled. A
-failed build raises with nvcc's stderr.
+failed build raises with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -37,15 +41,32 @@ def nvcc_path() -> str:
                        "CUDA kernels cannot be built")
 
 
+def cxx_path() -> str:
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found:
+        return found
+    raise RuntimeError("no host C++ compiler (g++ or $CXX) on PATH; the host "
+                       "library cannot be built")
+
+
+def source(name: str) -> Path:
+    """csrc/<name>.cu (a CUDA kernel) or csrc/<name>.cpp (host code)."""
+    for ext in (".cu", ".cpp"):
+        if (CSRC / f"{name}{ext}").exists():
+            return CSRC / f"{name}{ext}"
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src = source(name)
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for its current source
-    exists; returns the library's path."""
+    """Compile csrc/<name>.cu (nvcc) or csrc/<name>.cpp (the host
+    compiler) unless the library for its current source exists; returns
+    the library's path."""
     out = library_path(name)
     if out.exists():
         return out
@@ -54,18 +75,21 @@ def build(name: str) -> Path:
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    src = source(name)
+    cmd = ([nvcc_path(), *NVCC_FLAGS] if src.suffix == ".cu"
+           else [cxx_path(), *CXX_FLAGS])
+    proc = subprocess.run(cmd + ["-o", tmp, str(src)], capture_output=True,
+                          text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed building {name}.cu "
+        raise RuntimeError(f"{Path(cmd[0]).name} failed building {src.name} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, built on first use."""
+    """The ctypes handle of csrc/<name>.cu or .cpp, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))

@@ -1,1 +1,1 @@
-"""The web platform's RPC client."""
+"""On-the-fly session processing (streaming daemons)."""

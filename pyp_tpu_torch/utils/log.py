@@ -1,9 +1,11 @@
-"""Logging to stdout under the port's own logger root.
+"""Logging to stdout under the port's own logger root, with a TRACE level
+and an optional file handler.
 
-Equivalent of the reference's system/logging.py stdout handler. The port's
-own copy of the part of pyp_tpu/utils/log.py it uses: the same line
-format and the same `PYP_TPU_LOG_LEVEL` switch (info or debug; the port
-logs nothing below debug, so trace reads as debug).
+Equivalent of the reference's system/logging.py (custom TRACE level,
+stdout and file handlers). The port's own copy of pyp_tpu/utils/log.py:
+the same line format, the same `PYP_TPU_LOG_LEVEL` switch (info, debug or
+trace) and the same `logger.trace` and `add_file_handler`, under the
+root `pyp_tpu_torch`.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 import logging
 import os
 import sys
+
+TRACE = 5
+logging.addLevelName(TRACE, "TRACE")
 
 # the port logs under its own name, so a process that imports both packages
 # does not print each line twice
@@ -28,11 +33,26 @@ def _configure():
     root = logging.getLogger(_ROOT)
     root.addHandler(handler)
     level = os.environ.get("PYP_TPU_LOG_LEVEL", "info").lower()
-    root.setLevel(logging.DEBUG if level in ("debug", "trace")
-                  else logging.INFO)
+    root.setLevel({"debug": logging.DEBUG, "trace": TRACE}.get(
+        level, logging.INFO))
     _configured = True
 
 
 def get_logger(name: str = "") -> logging.Logger:
     _configure()
-    return logging.getLogger(f"{_ROOT}.{name}" if name else _ROOT)
+    logger = logging.getLogger(f"{_ROOT}.{name}" if name else _ROOT)
+
+    def trace(msg, *args, **kw):
+        logger.log(TRACE, msg, *args, **kw)
+
+    logger.trace = trace  # type: ignore[attr-defined]
+    return logger
+
+
+def add_file_handler(path):
+    """Also write the port's log lines to `path`; returns the handler."""
+    _configure()
+    handler = logging.FileHandler(path)
+    handler.setFormatter(logging.Formatter(_FORMAT, datefmt="%H:%M:%S"))
+    logging.getLogger(_ROOT).addHandler(handler)
+    return handler

@@ -44,7 +44,9 @@ max|average| (small and camera-sized path); periodogram rtol 1e-4; fit_ctf
 defocus within 0.2 * dfstep, angle within 2°; medians exact; picks the
 same set of coordinates; extracted stacks atol 1e-4 * max; one
 process_micrograph + extract_stack: the same picks, drift within 1e-2 px,
-stacks atol 1e-3 * max.
+stacks atol 1e-3 * max. The session daemon on one 256² movie: the same
+particle count and picks, drift within 1e-2 px (its summed path length
+within 0.1 px), defocus within 50 Å.
 
 The tomography slice (13 tilts of 256² from tools/e2e_tomo): prealign
 and patch and bead tracks within 1e-2 px; volumes, aligned and
@@ -604,6 +606,35 @@ def test_process_micrograph_and_extract_stack_cuda_match_cpu(tmp_path):
     np.testing.assert_array_equal(tg["original_x_position"],
                                   tc["original_x_position"])
 
+
+
+def test_session_daemon_cuda_matches_cpu(tmp_path):
+    """The stream daemon on one movie: the card's run gives the CPU run's
+    summary and bundle."""
+    from pyp_tpu_torch.io import mrc
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.stream.daemon import SessionDaemon
+
+    frames, _ = _movie(n=256)
+    params = schema.defaults()
+    params.update(scope_pixel=1.0, detect_rad=16.0, extract_box=32,
+                  ctf_tile=128, plot_per_item=False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        work = tmp_path / dev
+        (work / "in").mkdir(parents=True)
+        mrc.write(np.asarray(frames, np.float32), work / "in" / "m.mrc")
+        d = SessionDaemon(str(work / "in" / "*.mrc"), dict(params),
+                          work_dir=work, poll_interval=0.0, device=dev)
+        d.run(max_iterations=1)
+        out[dev] = (d.summaries, ItemMetadata("m", work).load())
+    (sc, mc), (sg, mg) = out["cpu"], out["cuda"]
+    assert len(sg) == len(sc) == 1
+    assert sg[0]["particles"] == sc[0]["particles"] > 0
+    assert abs(sg[0]["drift_px"] - sc[0]["drift_px"]) < 1e-1
+    assert abs(sg[0]["df1"] - sc[0]["df1"]) <= 50.0
+    np.testing.assert_allclose(mg["drift"], mc["drift"], atol=1e-2)
+    assert {(y, x) for y, x, _ in mg["box"]} == {(y, x) for y, x, _ in mc["box"]}
 
 # ---- ab initio and classification (2D gather / polar E-steps, M-step,
 # one 3D classification iteration) ----------------------------------------

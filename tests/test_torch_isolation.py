@@ -3,12 +3,16 @@ chip_smoke.py, imports the JAX package, and the layers the port keeps its
 own copies of (config, io, the CLI's project parameters) behave as the JAX
 package's do: the same schema defaults and parsed flags, project files
 and MRC / .cistem / PDB files each package reads back from the other,
-byte for byte where both write, and STAR tables (the port keeps only the
-reader) read the same. Also: the port's entry points default to the card,
-so they raise on a machine without one. The preprocessing slice's copies
-(io.metadata, io.tiff, io.eer, io.dm, sched.graph, LocalExecutor,
-load_selection, Web.write_micrograph) are held to the JAX package's the
-same way, and the options that slice refuses raise by name."""
+byte for byte where both write, and STAR tables read the same. Also: the
+port's entry points default to the card, so they raise on a machine
+without one, and its host modes take `device` and do no device work. The
+preprocessing slice's copies (io.metadata, io.tiff, io.eer, io.dm,
+sched.graph, LocalExecutor, load_selection, Web.write_micrograph) are held
+to the JAX package's the same way, and the options that slice refuses
+raise by name. The streaming slice's copies (the STAR writer, io.relion,
+io.relion_tomo, io.parfile, io.warp, io.eman, analysis.filters,
+stream.web, stream.params, stream.metadb, utils.notify and the pypio
+source) are the JAX package's files but for the package's name."""
 
 import ast
 from pathlib import Path
@@ -383,15 +387,32 @@ def test_refused_preprocessing_options_raise_by_name(flags, word, tmp_path,
     assert not list(tmp_path.glob("*.meta.npz"))
 
 
-@pytest.mark.parametrize("rel", ["analysis/occupancies.py", "io/mdoc.py",
-                                 "io/imod.py", "io/boxfiles.py",
-                                 "analysis/fit.py"])
+def _as_port(text):
+    """A JAX-package file as the port copies it: its imports, its logger
+    root, and the reference's sources cited without a machine's path."""
+    return (text.replace("from pyp_tpu.", "from pyp_tpu_torch.")
+            .replace("/root/reference/src/", "")
+            .replace("to the pyp_tpu root", "to the pyp_tpu_torch root")
+            .replace('logging.getLogger("pyp_tpu")',
+                     'logging.getLogger("pyp_tpu_torch")'))
+
+
+@pytest.mark.parametrize("rel", [
+    "analysis/occupancies.py", "io/mdoc.py", "io/imod.py", "io/boxfiles.py",
+    "analysis/fit.py", "io/star.py", "io/relion.py", "io/relion_tomo.py",
+    "io/parfile.py", "io/warp.py", "io/eman.py", "analysis/filters.py",
+    "stream/__init__.py", "stream/web.py", "stream/params.py",
+    "stream/metadb.py", "utils/notify.py",
+    "csrc/pypio.cpp:native/pypio/pypio.cpp"])
 def test_copied_modules_are_byte_identical(rel):
     """The port's copies of JAX-free modules that it keeps unchanged, but
-    for the package name in their imports."""
-    port = (REPO / "pyp_tpu_torch" / rel).read_text()
-    assert port == (REPO / "pyp_tpu" / rel).read_text().replace(
-        "from pyp_tpu.", "from pyp_tpu_torch."), rel
+    for the package name in their imports (and the logger root and cited
+    paths, `_as_port`); `port:jax` where the two paths differ."""
+    port_rel, _, jax_rel = rel.partition(":")
+    port = (REPO / "pyp_tpu_torch" / port_rel).read_text()
+    jax = (REPO / jax_rel).read_text() if jax_rel else (
+        REPO / "pyp_tpu" / rel).read_text()
+    assert port == _as_port(jax), rel
 
 
 @pytest.mark.parametrize("what", ["blocks", "geometry", "ctf", "artiax",
@@ -557,7 +578,9 @@ ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "train_heterogeneity", "train_heterogeneity_tilt", "embed",
                 "embed_tilt", "decode_volume", "cli_sprtrain",
                 "cli_tomotrain", "cli_mine", "cli_prism",
-                "cli_heterogeneity"]
+                "cli_heterogeneity", "SessionDaemon", "SessionManager",
+                "run_workflow", "cli_stream", "cli_stream_sessions",
+                "cli_workflow"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -583,6 +606,8 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     from pyp_tpu_torch.pipeline import spr as tspr
     from pyp_tpu_torch.postprocess import core as post
     from pyp_tpu_torch.postprocess import locres
+    from pyp_tpu_torch.sched import workflow
+    from pyp_tpu_torch.stream import daemon
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -775,6 +800,43 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
         "cli_mine": lambda: tcli.main(["mine"]),
         "cli_prism": lambda: tcli.main(["prism"]),
         "cli_heterogeneity": lambda: tcli.main(["heterogeneity"]),
+        "SessionDaemon": lambda: daemon.SessionDaemon("in/*.mrc", params),
+        "SessionManager": lambda: daemon.SessionManager("sessions"),
+        "run_workflow": lambda: workflow.run_workflow("wf.toml", {}),
+        "cli_stream": lambda: tcli.main(["stream", "-data_path", "in/*.mrc"]),
+        "cli_stream_sessions": lambda: tcli.main(
+            ["stream", "-stream_sessions_dir", "sessions"]),
+        "cli_workflow": lambda: tcli.main(["workflow", "wf.toml"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
+
+
+HOST_MODES = {"import_star": ["none.star"], "export_star": [],
+              "params": [], "filter": [], "byp": ["m.box"],
+              "boxedit": ["-edit_name", "m"],
+              "tomoedit": ["-edit_name", "m"], "export_session": [],
+              "report": []}
+
+
+@pytest.mark.parametrize("mode", sorted(HOST_MODES))
+def test_host_modes_take_device_and_do_no_device_work(mode, tmp_path,
+                                                      monkeypatch):
+    """The nine host modes take `device` ("cuda" by default, as every
+    mode) and run with it where there is no card: none reaches the card."""
+    import inspect
+
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+
+    assert inspect.signature(tcli.PORTED[mode]).parameters[
+        "device"].default == "cuda"
+    assert set(tcli.PORTED) == set(tcli.MODES) - {"worker"}
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "none.star").write_text("data_\nloop_\n_rlnX #1\n1\n")
+    tcistem.write_parameters(tcistem.Table.zeros(2), "stack.cistem")
+    (tmp_path / "m.box").write_text("10\t20\t64\t64\n")
+    meta = ItemMetadata("m", tmp_path)
+    meta["ctf"] = np.array([1e4, 1e4, 0.0, 0.0, 0.5, 6.0])
+    meta["box"] = np.array([[30.0, 40.0, 1.0]])
+    meta.save()
+    assert tcli.main([mode] + HOST_MODES[mode]) == 0

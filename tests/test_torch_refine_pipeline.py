@@ -211,11 +211,11 @@ def test_cli_refine_and_unported(problem, tmp_path, monkeypatch):
 
     stack, table, start, _ = problem
     monkeypatch.chdir(tmp_path)
-    # a mode the port does not have exits 2 (heterogeneity, the example
-    # here until the models slice ported it, reads stack.mrc); spr, tomo,
-    # sva and csp are ported since the preprocessing, tomography and
+    # a mode the port does not have exits 2 (worker, the last one; filter
+    # was the example here until the streaming slice ported it); spr,
+    # tomo, sva and csp are ported since the preprocessing, tomography and
     # subtomogram slices and, with nothing to read, exit 1
-    assert cli.main(["filter"], device="cpu") == 2
+    assert cli.main(["worker"], device="cpu") == 2
     for mode in ("spr", "tomo", "sva", "csp"):
         assert cli.main([mode], device="cpu") == 1
     for engine in ("frm", "gather"):

@@ -9,6 +9,19 @@ path (CSP, SVA) and particle polishing on top of those, and checks each
 result against the ground truth:
 
   slice      the gather engine (the path of the shift_scored_match kernel);
+  distributed  the multi-GPU path on the one card: (i) a world-size-1 NCCL
+             group in a subprocess (`--distributed-one`, joined through
+             the PYP_TPU_* environment) runs sharded_refine_batch on the
+             slice's global-search batch, reconstruct_sharded of its
+             4,096 particles, and sharded_accumulate_matrices and
+             csp_refine_batch_sharded at csp_layers' shape, each equal to
+             its single-device function to 1e-6 x max; (ii) the
+             distributed script of `refine -slurm_queue q -slurm_nodes 2`
+             (REFINE_ARGS' first two iterations) run by bash with srun and
+             scontrol shims, two gloo ranks sharing the card: rank 0 alone
+             writes maps/, poses within the gather parity tolerances of
+             the slice run, FSC(0.143) within a shell, every rank launches
+             the kernel;
   frm_polar  one FRM batch with the matmul and the gather polar sampler;
   frm_slice  the reference's FRM protocol (the default engine, gold-
              standard half banks, final polish), held to the reference's
@@ -31,6 +44,12 @@ result against the ground truth:
              within 10°, pick recall and precision >= 0.8, the three
              bundles and the merge summary written; a second call resumes
              and takes under a tenth of the first;
+  slurm      `spr -slurm_queue q -slurm_bundle 2` on links to the movies:
+             bash runs both array elements of the emitted swarm at once
+             (a `worker` per movie), then the merge's: picks and defocus
+             equal to the spr phase's; the launcher built from
+             csrc/launcher.cpp maps its `spr` alias to
+             `python -m pyp_tpu_torch.cli spr`;
   spr_layers  each preprocessing layer's time on one of the movies, and
              micrographs per minute for alignment + CTF;
   extract    the `extract` mode: as many normalized particles as picks,
@@ -152,7 +171,8 @@ reads shift_scored_match's launches, 0):
   heterogeneity  (after classify3d) `heterogeneity` at the schema's
              defaults on classify3d's two states x 2,048 at consensus
              poses: PC1 purity >= 0.8, each PC1 end closer to its own
-             state; (after sva) the tilt branch on `csp -csp_save_stacks`
+             state; (after sva) the tilt branch (100 training steps) on
+             `csp -csp_save_stacks`
              of the csp start: latents and volumes written, read;
   models_spr  (after extract) `sprtrain` on two of the spr bundles, `spr
              -detect_method nn` on the third (recall read beside the JAX
@@ -172,6 +192,8 @@ Prints one JSON line per phase, the card's name and power limit, a
 `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero without
 that last line; so does a machine with no CUDA device.
+`python3 chip_smoke.py --distributed-one <project>` is (i) of the
+distributed phase, which starts it.
 """
 
 from __future__ import annotations
@@ -435,11 +457,12 @@ def _quality(table, final, data, init):
 
 def phase_slice(data, init):
     """The gather-engine protocol: the path of the shift_scored_match
-    kernel."""
+    kernel. Returns its launches and, for the distributed phase, its
+    tables and FSC(0.143) at iterations 2 and 3."""
     from pyp_tpu_torch.tools.e2e_spa import REFINE_ARGS, SLICE
 
-    iters, table, final, wall, launches, _ = _drive_protocol(
-        REFINE_ARGS, data, init)
+    iters, table, final, wall, launches, tables = _drive_protocol(
+        REFINE_ARGS, data, init, inspect=_slice_tables)
     if sorted(iters) != [2, 3, 4]:
         raise RuntimeError(f"expected iterations 2-4, ran {sorted(iters)}")
     row = {"phase": "slice", "seconds": wall, "launches": launches,
@@ -455,7 +478,325 @@ def phase_slice(data, init):
     if not row["cc_final_10A"] > row["cc_start_10A"]:
         raise RuntimeError(f"final cc {row['cc_final_10A']:.4f} is not above "
                            f"the starting map's {row['cc_start_10A']:.4f}")
-    return launches
+    return launches, {"tables": tables,
+                      "fsc143_A": {it: iters[it]["fsc143_A"]
+                                   for it in tables}}
+
+
+DIST_MAXITER = "2"             # the 2-rank run: iterations 2 (global) and 3
+DIST_REL_TOL = 1e-6            # one NCCL rank against one device, x max
+DIST_BATCH = 256               # the gather slice's global-search batch
+DIST_CSP_ITERS = 5             # steps a mode: csp_layers' shape, fewer steps
+
+
+def _slice_tables(maps_dir, stem):
+    """The slice run's tables at iterations 2 and 3 (the 2-rank run's)."""
+    from pyp_tpu_torch.io import cistem
+
+    return {it: cistem.read_parameters(
+        os.path.join(maps_dir, f"dataset_r01_{it:02d}.cistem"))
+        for it in (2, 3)}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start_group(cmd, **kw):
+    """`cmd` started in a session of its own, its output spooled to files
+    (see _finish_group)."""
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    proc = subprocess.Popen(cmd, stdout=logs[0], stderr=logs[1], text=True,
+                            start_new_session=True, **kw)
+    proc.logs = logs
+    return proc
+
+
+def _finish_group(proc, timeout):
+    """(returncode, stdout, stderr) of a `_start_group` process; every
+    process of its session is killed if it outlasts `timeout`."""
+    import signal
+
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = 124
+    texts = []
+    for f in proc.logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return (rc, *texts)
+
+
+def _run_group(cmd, timeout, **kw):
+    return _finish_group(_start_group(cmd, **kw), timeout)
+
+
+def _rot_diff_deg(a, b):
+    """Rotation angle between the (phi, theta, psi) columns of two
+    tables."""
+    import torch
+
+    from pyp_tpu_torch.core.geometry import euler_to_matrix
+
+    def R(t):
+        return euler_to_matrix(*(torch.as_tensor(np.asarray(t[k], np.float32))
+                                 for k in ("phi", "theta", "psi")))
+
+    tr = torch.einsum("bij,bij->b", R(a), R(b)).numpy()
+    return np.degrees(np.arccos(np.clip((tr - 1) / 2, -1, 1)))
+
+
+def distributed_one(work):
+    """(i) of the distributed phase, in its own process: a world-size-1
+    NCCL group (joined through PYP_TPU_COORDINATOR / NUM_PROCS / PROC_ID)
+    runs sharded_refine_batch on the gather slice's global-search batch
+    (its first 256 particles; the path of shift_scored_match),
+    reconstruct_sharded of the 4,096 particles at the slice's refined
+    poses, and sharded_accumulate_matrices and csp_refine_batch_sharded at
+    csp_layers' shape (the schedule DIST_CSP_ITERS steps a mode), each
+    beside the single-device function on the same inputs. Deterministic algorithms, so that a one-rank all_reduce, the
+    identity, leaves the results equal. Prints one JSON row."""
+    import torch
+    import torch.distributed as dist
+
+    from pyp_tpu_torch import cli, parallel
+    from pyp_tpu_torch.io import cistem, mrc
+    from pyp_tpu_torch.ops import csp, kernels, refine3d
+    from pyp_tpu_torch.ops import reconstruct as rec
+    from pyp_tpu_torch.pipeline.refine import (gather_search_kwargs,
+                                               table_to_ctf_params,
+                                               table_to_poses)
+    from pyp_tpu_torch.tools.e2e_spa import REFINE_ARGS, SLICE
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if not parallel.init_distributed():
+        raise RuntimeError("PYP_TPU_COORDINATOR is not set")
+    row = {"phase": "distributed_one", "backend": dist.get_backend(),
+           "world_size": dist.get_world_size(), "steps": {}}
+    mesh = parallel.make_mesh()
+    pixel = SLICE["pixel"]
+    stack = mrc.read(os.path.join(work, "stack.mrc")).astype(np.float32)
+    ref = mrc.read(os.path.join(work, "initial_model.mrc"))
+    table = cistem.read_parameters(os.path.join(work, "refined.cistem"))
+    ctf = table_to_ctf_params(table)
+    params = cli._project_params(REFINE_ARGS[1:], work_dir=work,
+                                 persist=False)
+    kw = gather_search_kwargs(params, 2, pixel, True)
+
+    def compare(name, single, sharded):
+        (a, t_single), (b, t_sharded) = single, sharded
+        a = [x for x in a if isinstance(x, torch.Tensor)]
+        b = [x for x in b if isinstance(x, torch.Tensor)]
+        scale = max(float(x.abs().max()) for x in a)
+        err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        row["steps"][name] = {"single_s": t_single, "sharded_s": t_sharded,
+                              "max_abs_err": err, "max_abs": scale,
+                              "ok": err <= DIST_REL_TOL * scale}
+
+    rows = slice(0, DIST_BATCH)
+    single = _sync_s(lambda: refine3d.refine_batch(
+        stack[rows], ctf[rows], ref, pixel, device="cuda", **kw))
+    kernels.shift_scored_match.launches = 0
+    sharded = _sync_s(lambda: parallel.sharded_refine_batch(
+        mesh, stack[rows], ctf[rows], ref, pixel, **kw))
+    row["launches"] = kernels.shift_scored_match.launches
+    compare("sharded_refine_batch", single, sharded)
+    poses = table_to_poses(table, pixel)
+    compare("reconstruct_sharded",
+            _sync_s(lambda: rec.reconstruct(stack, poses, ctf, pixel,
+                                            device="cuda")),
+            _sync_s(lambda: parallel.reconstruct_sharded(
+                mesh, stack, poses, ctf, pixel)))
+    c = CSP_LAYERS
+    args, gen = _csp_layers_inputs()
+    R = csp.effective_rotations(args[0]).reshape(-1, 3, 3)
+    B = R.shape[0]
+    dev = R.device
+    wins = torch.randn((B, c["box"], c["box"]), generator=gen, device=dev)
+    mat = (wins, R, torch.zeros((B, 2), device=dev),
+           torch.full((B,), 20000.0, device=dev),
+           torch.arange(B, device=dev) % 2, torch.ones(B, device=dev),
+           c["box"], c["pixel"])
+    compare("sharded_accumulate_matrices",
+            _sync_s(lambda: rec.accumulate_matrices(*mat)),
+            _sync_s(lambda: parallel.sharded_accumulate_matrices(mesh, *mat)))
+    offs, spin = csp.build_mode_offsets(c["modes"], None, 9)
+    sched = (offs, spin, c["modes"], c["box"], c["pixel"])
+
+    def flat(out):
+        return list(out[0]) + [out[1], out[2]]
+
+    single = _sync_s(lambda: csp.csp_refine_batch(
+        *args, *sched, iters_per_mode=DIST_CSP_ITERS))
+    sharded = _sync_s(lambda: parallel.csp_refine_batch_sharded(
+        mesh, *args, *sched, iters_per_mode=DIST_CSP_ITERS))
+    compare("csp_refine_batch_sharded", (flat(single[0]), single[1]),
+            (flat(sharded[0]), sharded[1]))
+    dist.destroy_process_group()
+    print(json.dumps(row), flush=True)
+
+
+def phase_distributed(data, init, slice_ref):
+    """The port's multi-GPU path on the one card. (i) A world-size-1 NCCL
+    group in a subprocess started through the environment variables runs
+    every `parallel` function once at full width (`distributed_one`):
+    each equal to its single-device function to DIST_REL_TOL x max, and
+    sharded_refine_batch launches shift_scored_match. (ii) The distributed
+    script of `refine -slurm_queue q -slurm_nodes 2` + REFINE_ARGS (the
+    first two iterations) run by bash as the scheduler would, srun
+    starting its two ranks here, each in its own copy of the project: the
+    ranks share the card, so the group is gloo; (i) and (ii) run at once.
+    Bars: rank 0 alone wrote
+    maps/, the poses at iterations 2 and 3 within
+    test_torch_refine_pipeline's gather tolerances of the slice phase's
+    single-rank run, FSC(0.143) at iteration 2 within one shell of it, and
+    every rank launched shift_scored_match. Returns the launches of both
+    runs."""
+    from pyp_tpu_torch.io import cistem
+    from pyp_tpu_torch.tools import e2e_spa
+    from pyp_tpu_torch.tools.e2e_spa import SLICE
+
+    failures = []
+    row = {"phase": "distributed"}
+    with tempfile.TemporaryDirectory() as root:
+        one = os.path.join(root, "one")
+        os.makedirs(one)
+        e2e_spa.write_project(one, data, init, pixel=SLICE["pixel"])
+        cistem.write_parameters(slice_ref["tables"][3],
+                                os.path.join(one, "refined.cistem"))
+        env = {**os.environ, "PYTHONPATH": ROOT,
+               "PYP_TPU_COORDINATOR": f"localhost:{_free_port()}",
+               "PYP_TPU_NUM_PROCS": "1", "PYP_TPU_PROC_ID": "0",
+               "PYP_TPU_LOCAL_RANK": "0", "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        t0 = time.perf_counter()
+        proc = _start_group([sys.executable, os.path.abspath(__file__),
+                             "--distributed-one", one], env=env)
+        try:
+            failures += _two_ranks(data, init, slice_ref, root, row,
+                                   SLICE["pixel"], SLICE["box"])
+        finally:
+            rc, out, err = _finish_group(proc, 600)
+        row["one_rank_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"the world-size-1 NCCL run exited {rc}:\n"
+                               f"{out[-3000:]}\n{err[-6000:]}")
+        one_row = [json.loads(ln) for ln in out.splitlines()
+                   if ln.startswith('{"phase": "distributed_one"')][-1]
+        emit(one_row)
+        if one_row["backend"] != "nccl" or one_row["world_size"] != 1:
+            failures.append(f"(i) ran on {one_row['backend']} x "
+                            f"{one_row['world_size']}")
+        failures += [f"(i) {k}: {v}" for k, v in one_row["steps"].items()
+                     if not v["ok"]]
+        if one_row["launches"] < 1:
+            failures.append("(i) sharded_refine_batch never launched "
+                            "shift_scored_match")
+    emit(row)
+    if failures:
+        raise RuntimeError("distributed bars failed: " + "; ".join(failures))
+    return one_row["launches"] + sum(
+        rep["launches"]["shift_scored_match"] for rep in row["ranks"])
+
+
+def _two_ranks(data, init, slice_ref, root, row, pixel=1.0, box=128):
+    """(ii) of the distributed phase in `root`: the rows of `row` it
+    fills, and the bars it failed."""
+    from pyp_tpu_torch.io import cistem
+    from pyp_tpu_torch.tools import e2e_spa
+    from pyp_tpu_torch.tools.e2e_spa import REFINE_ARGS
+
+    failures = []
+    two = os.path.join(root, "two")
+    ranks = [os.path.join(two, f"rank{r}") for r in (0, 1)]
+    os.makedirs(ranks[0])
+    e2e_spa.write_project(ranks[0], data, init, pixel=pixel)
+    os.makedirs(ranks[1])
+    for f in ("stack.mrc", "stack.cistem", "initial_model.mrc"):
+        os.link(os.path.join(ranks[0], f), os.path.join(ranks[1], f))
+    argv = list(REFINE_ARGS)
+    argv[argv.index("-refine_maxiter") + 1] = DIST_MAXITER
+    emitted, _ = _cli_json(argv + ["-slurm_queue", "q", "-slurm_nodes",
+                                   "2"], ranks[0])
+    script = os.path.join(ranks[0], emitted["script"])
+    with open(script) as f:
+        row["script"] = f.read().splitlines()
+    # the scheduler's part, on this host: srun starts SLURM_NTASKS ranks
+    # of its command, each in its own copy of the project
+    bin_dir = os.path.join(root, "bin")
+    os.makedirs(bin_dir)
+    shims = {"scontrol": "#!/bin/bash\necho localhost\n",
+             "srun": ("#!/bin/bash\npids=()\n"
+                      "for ((i = 0; i < SLURM_NTASKS; i++)); do\n"
+                      f'  (cd "{two}/rank$i" && SLURM_PROCID=$i '
+                      'SLURM_LOCALID=$i exec "$@") &\n'
+                      "  pids+=($!)\ndone\nrc=0\n"
+                      'for p in "${pids[@]}"; do wait "$p" || rc=1; done\n'
+                      "exit $rc\n")}
+    for name, text in shims.items():
+        with open(os.path.join(bin_dir, name), "w") as f:
+            f.write(text)
+        os.chmod(os.path.join(bin_dir, name), 0o755)
+    reports = os.path.join(root, "reports")
+    env = {**os.environ, "PYTHONPATH": ROOT, "SLURM_NTASKS": "2",
+           "SLURM_JOB_NODELIST": "localhost",
+           "PATH": bin_dir + os.pathsep + os.environ.get("PATH", ""),
+           "PYP_TPU_RANK_REPORT": reports}
+    t0 = time.perf_counter()
+    rc, out, err = _run_group(["bash", script], 900, cwd=ranks[0],
+                              env=env)
+    row["two_ranks_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"the 2-rank refine exited {rc}:\n"
+                           f"{out[-3000:]}\n{err[-6000:]}")
+    rank_rows = []
+    for r in (0, 1):
+        with open(os.path.join(reports, f"rank{r}.json")) as f:
+            rank_rows.append(json.load(f))
+    row["ranks"] = rank_rows
+    maps = os.path.join(ranks[0], "maps")
+    row["rank1_files"] = sorted(os.listdir(ranks[1]))
+    with open(os.path.join(maps, "dataset_r01_history.json")) as f:
+        history = {h["iteration"]: h["resolution"] for h in json.load(f)}
+    for it in (2, 3):
+        mine = cistem.read_parameters(
+            os.path.join(maps, f"dataset_r01_{it:02d}.cistem"))
+        theirs = slice_ref["tables"][it]
+        diff = _rot_diff_deg(mine, theirs)
+        row[f"iteration{it}"] = {
+            "within_1deg": float(np.mean(diff < 1.0)),
+            "median_x_shift_diff_A": float(np.median(np.abs(
+                np.asarray(mine["x_shift"])
+                - np.asarray(theirs["x_shift"])))),
+            "fsc143_A": history[it],
+            "slice_fsc143_A": slice_ref["fsc143_A"][it]}
+        r = row[f"iteration{it}"]
+        if not (r["within_1deg"] >= 0.9 and r["median_x_shift_diff_A"]
+                < 0.05 * pixel):
+            failures.append(f"(ii) iteration {it} poses: {r}")
+    a, b = history[2], slice_ref["fsc143_A"][2]
+    if abs(1 / a - 1 / b) > 1.0 / (box * pixel):
+        failures.append(f"(ii) FSC(0.143) {a} Å against the slice "
+                        f"run's {b} Å")
+    if row["rank1_files"] != ["initial_model.mrc", "stack.cistem",
+                              "stack.mrc"]:
+        failures.append(f"rank 1 wrote into its project: "
+                        f"{row['rank1_files']}")
+    for rep in row["ranks"]:
+        if rep["backend"] != "gloo" or rep["world_size"] != 2:
+            failures.append(f"rank {rep['rank']} ran on {rep['backend']} x "
+                            f"{rep['world_size']}")
+        if rep["launches"]["shift_scored_match"] < 1:
+            failures.append(f"rank {rep['rank']} never launched "
+                            "shift_scored_match")
+    return failures
 
 
 def _sync_s(fn):
@@ -1154,6 +1495,94 @@ def phase_spr(movies_dir, project, truth):
     return wall / merge["micrographs"]
 
 
+def phase_slurm(movies_dir, project, root):
+    """SLURM submission of `spr`, run here as the scheduler would run it:
+    `spr -slurm_queue q -slurm_bundle 2` (no submit) on links to the three
+    movies writes the array and its merge; bash runs both elements of
+    sprswarm.sbatch at once (each `eval`s its lines of sprswarm.swarm, a
+    `worker` per movie), then sprmerge.sbatch (the merge payload through
+    `worker`). Bar: every bundle's picks (positions and scores) and
+    defocus equal to the spr phase's, bit for bit. Then the launcher,
+    built from csrc/launcher.cpp: its `spr` alias execs `python -m
+    pyp_tpu_torch.cli spr` (a stub python prints what it was given)."""
+    from pyp_tpu_torch.io.metadata import ItemMetadata
+    from pyp_tpu_torch.ops import _build
+    from pyp_tpu_torch.tools import e2e_spr
+
+    work = os.path.join(root, "slurm")
+    movies = os.path.join(work, "movies")
+    os.makedirs(movies)
+    names = sorted(f[:-4] for f in os.listdir(movies_dir)
+                   if f.startswith("movie_") and f.endswith(".mrc"))
+    for name in names:
+        os.link(os.path.join(movies_dir, name + ".mrc"),
+                os.path.join(movies, name + ".mrc"))
+    argv = e2e_spr.SPR_ARGS + ["-data_path",
+                               os.path.join(movies, "movie_*.mrc"),
+                               "-slurm_queue", "q", "-slurm_bundle", "2"]
+    report, _ = _cli_json(argv, work)
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    row = {"phase": "slurm", "n_items": report["n_items"],
+           "scripts": [os.path.basename(p) for p in report["scripts"]]}
+    t0 = time.perf_counter()
+    rc, out, err = _run_group(
+        ["bash", "-c", 'SLURM_ARRAY_TASK_ID=1 bash "$0" & a=$!; '
+         'SLURM_ARRAY_TASK_ID=2 bash "$0" & b=$!; '
+         'wait $a; ra=$?; wait $b; exit $((ra | $?))',
+         "swarm/sprswarm.sbatch"], 600, cwd=work, env=env)
+    row["elements_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"the swarm's elements exited {rc}:\n"
+                           f"{out[-3000:]}\n{err[-6000:]}")
+    t0 = time.perf_counter()
+    rc, out, err = _run_group(["bash", "swarm/sprmerge.sbatch"], 300,
+                              cwd=work,
+                              env={**env, "SLURM_ARRAY_TASK_ID": "1"})
+    row["merge_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"the merge exited {rc}:\n{out[-3000:]}\n"
+                           f"{err[-6000:]}")
+    failures = []
+    row["picks"], row["defocus_max_diff_A"] = {}, 0.0
+    for name in names:
+        mine = ItemMetadata(name, work).load()
+        theirs = ItemMetadata(name, project).load()
+        if not (mine.is_done("box") and mine.is_done("ctf")):
+            failures.append(f"{name}: no picks or CTF in the bundle")
+            continue
+        row["picks"][name] = int(len(mine["box"]))
+        # the picks' positions and scores, bit for bit: the elements share
+        # the card, and nothing on the path may depend on its free memory
+        if not np.array_equal(mine["box"], theirs["box"]):
+            failures.append(f"{name}: picks differ from the spr phase's")
+        row["defocus_max_diff_A"] = max(row["defocus_max_diff_A"], *(
+            abs(float(mine["ctf"][k]) - float(theirs["ctf"][k]))
+            for k in (0, 1)))
+    if row["defocus_max_diff_A"] != 0.0:
+        failures.append(f"defocus off the spr phase's by "
+                        f"{row['defocus_max_diff_A']} Å")
+    # the launcher's alias farm
+    t0 = time.perf_counter()
+    binary = _build.build_executable("launcher")
+    row["launcher_build_s"] = time.perf_counter() - t0
+    stub = os.path.join(work, "python-stub")
+    with open(stub, "w") as f:
+        f.write('#!/bin/sh\necho "$@"\n')
+    os.chmod(stub, 0o755)
+    alias = os.path.join(work, "spr")
+    os.symlink(binary, alias)
+    rc, out, err = _run_group([alias, "-data_path", "x"], 60, env={
+        **os.environ, "PYP_TPU_PYTHON": stub})
+    row["launcher_spr"] = out.strip()
+    if rc != 0 or out.split() != ["-m", "pyp_tpu_torch.cli", "spr",
+                                  "-data_path", "x"]:
+        failures.append(f"the launcher's spr alias gave {rc}: {out!r} "
+                        f"{err!r}")
+    emit(row)
+    if failures:
+        raise RuntimeError("slurm bars failed: " + "; ".join(failures))
+
+
 def phase_spr_layers(movies_dir):
     """Device-synchronised medians of each preprocessing layer on one
     movie at full size, the zoom DFT beside a plain irfft2 of the same
@@ -1450,11 +1879,14 @@ def phase_interop(refined, fsc_ref, root):
         failures.append(f"FSC {fsc:.3f} Å from the imported poses against "
                         f"{fsc_ref:.3f} Å")
     # half the last printed digit of the .par columns (%8.2f angles,
-    # %10.2f shifts, %9.1f defocus)
+    # %10.2f shifts, %9.1f defocus), plus the half float32 spacing that
+    # the table's float32 column rounds the printed value by
     for c, tol in (("phi", 5e-3), ("theta", 5e-3), ("psi", 5e-3),
                    ("x_shift", 5e-3), ("y_shift", 5e-3), ("defocus_1", 5e-2),
                    ("defocus_2", 5e-2)):
-        if not par_err[c] <= tol + 1e-9:
+        half_spacing = 0.5 * float(np.spacing(np.float32(
+            np.abs(np.asarray(imported[c], np.float32)).max())))
+        if not par_err[c] <= tol + half_spacing:
             failures.append(f".par round trip {c} off by {par_err[c]}")
     if row["launches"]:
         failures.append("interop launched shift_scored_match")
@@ -1843,8 +2275,9 @@ def phase_tiff_lzw():
 
 
 def phase_preprocess(volume):
-    """The preprocessing phases on one movie set in a temporary directory,
-    the SPA side of the models, the streaming slice's phases (interop,
+    """The preprocessing phases on one movie set in a temporary directory
+    (`spr` also through SLURM's scripts, `slurm`), the SPA side of the
+    models, the streaming slice's phases (interop,
     stream, workflow), then polishing. Returns the kernel launches of the
     `polish`, models, interop, stream and workflow runs."""
     with tempfile.TemporaryDirectory() as root:
@@ -1852,6 +2285,7 @@ def phase_preprocess(volume):
         project = os.path.join(root, "project")
         truth = phase_spr_synthesize(volume, movies_dir)
         spr_s_per_movie = phase_spr(movies_dir, project, truth)
+        phase_slurm(movies_dir, project, root)
         phase_spr_layers(movies_dir)
         phase_extract(project, truth)
         models = phase_models_spr(project, movies_dir, truth, root)
@@ -2383,17 +2817,13 @@ class _LogLines:
         return False
 
 
-def phase_csp_layers():
-    """The CSP refinement alone at the reference bench's shape on windows of
-    noise (no quality bar): the mode schedule plain and with the grid
-    search, each with the series one after another and vectorized;
-    projections per second (S*T*P / wall), peak memory, one step's split
-    into the reference gather, the NCC and the autograd backward; and
-    accumulate_matrices of all S*T*P rows."""
+def _csp_layers_inputs():
+    """The CSP schedule's inputs at csp_layers' shape on the card, on
+    windows of noise: ((params, xv, window centres, defocus, mask points,
+    Fref, tilt weights, validity), the generator that drew them)."""
     import torch
 
-    from pyp_tpu_torch.ops import csp, kernels
-    from pyp_tpu_torch.ops import reconstruct as rec
+    from pyp_tpu_torch.ops import csp
     from pyp_tpu_torch.ops.fourier_slice import volume_to_fourier
     from pyp_tpu_torch.ops.refine3d import make_mask_points
 
@@ -2421,7 +2851,27 @@ def phase_csp_layers():
     df = torch.full((S, T, 2), 20000.0, device=dev)
     tw = torch.ones((S, T), device=dev)
     valid = torch.ones((S, T, P), device=dev)
-    args = (params, xv, wc, df, mask, Fref, tw, valid)
+    return (params, xv, wc, df, mask, Fref, tw, valid), gen
+
+
+def phase_csp_layers():
+    """The CSP refinement alone at the reference bench's shape on windows of
+    noise (no quality bar): the mode schedule plain and with the grid
+    search, each with the series one after another and vectorized;
+    projections per second (S*T*P / wall), peak memory, one step's split
+    into the reference gather, the NCC and the autograd backward; and
+    accumulate_matrices of all S*T*P rows."""
+    import torch
+
+    from pyp_tpu_torch.ops import csp, kernels
+    from pyp_tpu_torch.ops import reconstruct as rec
+
+    c = CSP_LAYERS
+    S, T, P, n, pixel = c["S"], c["T"], c["P"], c["box"], c["pixel"]
+    args, gen = _csp_layers_inputs()
+    params, xv, wc, df, mask, Fref, tw, valid = args
+    dev = xv.device
+    G = int(mask.shape[0])
     kernels.shift_scored_match.launches = 0
     row = {"phase": "csp_layers", "S": S, "T": T, "P": P, "box": n, "G": G,
            "modes": list(c["modes"]), "iters_per_mode": c["iters"]}
@@ -2835,6 +3285,7 @@ NN_RECALL_BAR = 0.7
 MEASURED_SECTOR_BAR = 1e-2     # of max|F| of the slice (tests/test_models.py:121)
 MODEL_STEPS = dict(picker=300, membrane=400, miner=300, quality=300,
                    heterogeneity=500)   # the schema's defaults
+HET_TILT_STEPS = 100   # the tilt branch, read without a bar: a short run
 
 
 class _Window:
@@ -3242,8 +3693,9 @@ def phase_heterogeneity():
 def phase_heterogeneity_tilt(data_dir, root, tt, base):
     """`csp -csp_save_stacks` on the csp phase's start (a copy of its
     project), then `heterogeneity` on the exported tilt stacks (the
-    tomoDRGN branch): latents and volumes written and finite, read
-    without a bar. Returns the kernel launches."""
+    tomoDRGN branch, HET_TILT_STEPS training steps): latents and volumes
+    written and finite, read without a bar. Returns the kernel
+    launches."""
     from pyp_tpu_torch.io import mrc
     from pyp_tpu_torch.tools import e2e_csp
 
@@ -3267,7 +3719,8 @@ def phase_heterogeneity_tilt(data_dir, root, tt, base):
     with np.load(os.path.join(proj, "stacks", "ts01_stack.npz")) as z:
         stacks_shape = list(z["stacks"].shape)
     with _Window() as w, _StageTimes() as st:
-        out, _ = _cli_json(["heterogeneity"], proj)
+        out, _ = _cli_json(["heterogeneity", "-het_steps",
+                            str(HET_TILT_STEPS)], proj)
     latents = np.load(os.path.join(proj, "heterogeneity_latents.npz"))[
         "latents"]
     vols = [mrc.read(os.path.join(proj, f"het_volume_{i:02d}.mrc"))
@@ -3280,7 +3733,7 @@ def phase_heterogeneity_tilt(data_dir, root, tt, base):
            "finite": bool(np.isfinite(latents).all()
                           and all(np.isfinite(v).all() for v in vols)),
            "pc1_explained": out["pc1_explained"], "training_s": t_h,
-           "training_steps_per_s": MODEL_STEPS["heterogeneity"] / t_h}
+           "training_steps_per_s": HET_TILT_STEPS / t_h}
     emit(row)
     launches = row["launches"] + csp_row["launches"]
     if not (row["finite"] and latents.shape[0] == stacks_shape[0]):
@@ -3360,7 +3813,8 @@ def main():
     k = phase_kernel()
     phase_tiff_lzw()
     data, init = phase_synthesize()
-    launches = phase_slice(data, init)
+    launches, slice_ref = phase_slice(data, init)
+    distributed = phase_distributed(data, init, slice_ref)
     phase_frm_polar(data)
     final_halves = phase_frm_slice(data, init)
     phase_frm_options(data, init)
@@ -3385,7 +3839,8 @@ def main():
         "name": "shift_scored_match", "route": "cuda",
         "source": "pyp_tpu_torch/csrc/shift_scored_match.cu",
         "replaces": "pyp_tpu/ops/pallas_kernels.py:80",
-        "launches": {"slice": launches, "abinit_classic": classic,
+        "launches": {"slice": launches, "distributed": distributed,
+                     "abinit_classic": classic,
                      "classify2d_gather": gather2d, **tomo_launches,
                      "csp_layers": csp_layers, **preprocess,
                      "heterogeneity": het},
@@ -3399,4 +3854,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--distributed-one"]:
+        distributed_one(sys.argv[2])
+    else:
+        main()

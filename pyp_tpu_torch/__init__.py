@@ -30,16 +30,20 @@ WBP/SART reconstruction, denoising, segmentation and 3D picking over
 the `stream` mode: movies preprocessed as they arrive, 2D classes kept
 up to date, flag files and a metadata store for the web platform), the
 workflow runner (`sched.workflow`) and the interchange modes (RELION,
-FREALIGN, Warp, EMAN2, crYOLO and IMOD files). The entry points
+FREALIGN, Warp, EMAN2, crYOLO and IMOD files); and the multi-GPU path
+(`parallel`: `refine` and `csp` split over the ranks of a
+torch.distributed group, one card each), SLURM submission
+(`sched.bridge`, the `worker` mode) and the launcher
+(`csrc/launcher.cpp`). The entry points
 (`cli.main`, `pipeline.spr.process_micrograph`, `extract_stack`, the
 alignment, CTF-fit, picking and extraction functions of `ops`,
 `pipeline.refine.refine_loop`, `refinement_iteration`,
 `ops.reconstruct.reconstruct`, `ops.refine3d.refine_batch`,
 `ops.frm.FrmConfig`, `postprocess.core.postprocess_latest`,
 `postprocess.locres.local_resolution`,
-`analysis.modelfit.model_map_fit`, `pipeline.tomo.process_tilt_series`
-and the tomography ops) run on the card unless the caller passes
-`device="cpu"`.
+`analysis.modelfit.model_map_fit`, `pipeline.tomo.process_tilt_series`,
+the tomography ops and `parallel.make_mesh` / `init_distributed`) run on
+the card unless the caller passes `device="cpu"`.
 
 Layout:
   pyp_tpu_torch.config      — parameter schema, CLI flags, project file
@@ -53,7 +57,11 @@ Layout:
   pyp_tpu_torch.utils       — logging, timers, log mirroring and mail
   pyp_tpu_torch.stream      — the session daemon, its params file and
                               metadata store, the web platform's client
-  pyp_tpu_torch.sched       — job graphs, the local executor, workflows
+  pyp_tpu_torch.sched       — job graphs, the local executor, workflows,
+                              SLURM scripts (`bridge`, `SlurmExecutor`)
+  pyp_tpu_torch.parallel    — several ranks, one card each: the process
+                              group, the mesh, the sharded refine,
+                              reconstruction and CSP functions
   pyp_tpu_torch.core        — geometry, CTF model, FFT helpers, filters, FSC
   pyp_tpu_torch.ops         — motion correction, CTF fitting, picking,
                               extraction, Fourier-slice operators, FRM,
@@ -71,8 +79,7 @@ Layout:
                               (e2e_spa, e2e_spr, e2e_class, e2e_tomo),
                               the refine profiler
   pyp_tpu_torch.state       — state exchange with the JAX package
-  pyp_tpu_torch.cli         — the ported modes (cli.PORTED: all but
-                              `worker`)
+  pyp_tpu_torch.cli         — every mode of the JAX package (cli.PORTED)
 """
 
 from __future__ import annotations

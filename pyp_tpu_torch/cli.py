@@ -1,5 +1,5 @@
 """Command-line entry point of the port: every mode of the JAX package
-but `worker` (cli.PORTED), the ones with device work on a CUDA device.
+(cli.PORTED == cli.MODES), the ones with device work on a CUDA device.
 
     python -m pyp_tpu_torch.cli spr -data_path 'movies/*.mrc' -scope_pixel 1.0 ...
     python -m pyp_tpu_torch.cli tomo -data_path 'series/*.mrc' -scope_pixel 1.0 ...
@@ -33,6 +33,7 @@ but `worker` (cli.PORTED), the ones with device work on a CUDA device.
     python -m pyp_tpu_torch.cli boxedit -edit_name mic -edit_remove_circle y:x:r
     python -m pyp_tpu_torch.cli tomoedit -edit_name ts -edit_exclude_tilts 0:40
     python -m pyp_tpu_torch.cli params
+    python -m pyp_tpu_torch.cli worker swarm/spr_00000.json
 
 `spr` preprocesses every movie `-data_path` matches (frame alignment, CTF
 estimation, picking) into one `<name>.meta.npz` bundle each, resuming
@@ -85,8 +86,18 @@ particle, tomogram and motion stars in and out of the project,
 <dataset>_report.html, `byp` converts box, model, star, cbox, HDF and
 .cistem files, `boxedit` and `tomoedit` edit a bundle's picks and tilts,
 and `params` prints the project's parameters. Each writes the files the
-JAX package's mode writes. `worker` is not ported and exits non-zero;
-SLURM submission raises NotImplementedError by name.
+JAX package's mode writes.
+
+SLURM: with -slurm_queue, -slurm_host or -slurm_submit, `spr`, `tomo` and
+`csp` write (and with -slurm_submit submit) a swarm array of one element
+per item plus a dependent merge, `sprtrain`, `tomotrain` and `stream` one
+job, and `refine` a distributed script over -slurm_nodes nodes, one rank
+per card (`sched/bridge`), the JAX package's scripts; `worker` runs one
+element's payload. `polish` and `sva` ignore the SLURM parameters and run
+here, as in the JAX package. A process the scheduler started with
+PYP_TPU_COORDINATOR set joins its torch.distributed group first
+(`parallel.init_distributed`): `refine` and `csp` then split their work
+over the group's ranks, and rank 0 alone writes the project files.
 """
 
 from __future__ import annotations
@@ -99,13 +110,15 @@ from pathlib import Path
 
 import numpy as np
 
+from pyp_tpu_torch import parallel
 from pyp_tpu_torch.config import params as cfg
 from pyp_tpu_torch.config.blocks import apply_reference_aliases
+from pyp_tpu_torch.sched.bridge import slurm_requested  # noqa: F401
 from pyp_tpu_torch.utils import Timer, get_logger
 
 logger = get_logger("cli")
 
-# the JAX package's modes; PORTED below names the ones the port has
+# the JAX package's modes; PORTED below maps each to the port's function
 MODES = ("spr", "tomo", "extract", "refine", "classify2d", "classify3d",
          "csp", "polish", "postprocess", "import_star", "export_star",
          "clean", "worker", "params", "gain", "stream", "kselection",
@@ -138,6 +151,15 @@ def _project_params(argv, work_dir=".", persist=True):
         k: v for k, v in overrides.items()
         if k in given or defaults.get(k) != v
     }
+    if persist and parallel.distributed():
+        # rank 0 alone writes the project file; the others read the same
+        # parameters once it is written
+        if parallel.is_writer():
+            params = cfg.update_parameters(work_dir, explicit)
+        parallel.barrier()
+        persist = parallel.is_writer()
+        if persist:
+            return apply_reference_aliases(params)
     if not persist:
         saved = {**defaults, **(cfg.load_parameters(work_dir) or {})}
         saved.update(explicit)
@@ -147,13 +169,17 @@ def _project_params(argv, work_dir=".", persist=True):
     return apply_reference_aliases(cfg.update_parameters(work_dir, explicit))
 
 
-def slurm_requested(params: dict) -> bool:
-    """True where the parameters ask for SLURM submission (a worker,
-    marked by PYP_TPU_WORKER, executes instead)."""
-    if os.environ.get("PYP_TPU_WORKER"):
-        return False
-    return bool(params.get("slurm_queue") or params.get("slurm_host")
-                or params.get("slurm_submit"))
+def _maybe_slurm_swarm(mode, argv, params, items):
+    """Route per-item modes through SLURM when -slurm_* selects it:
+    emit/submit the array + dependent merge and return its report (the
+    merge element re-runs the mode, whose resume-aware stages reduce)."""
+    from pyp_tpu_torch.sched import bridge
+
+    if not bridge.slurm_requested(params):
+        return None
+    report = bridge.submit_swarm(mode, items, params, argv)
+    print(json.dumps(report, indent=1))
+    return 0
 
 
 def _discover_items(params):
@@ -202,12 +228,9 @@ def mode_spr(argv, device="cuda"):
     if not items:
         logger.error("no input files match data_path=%r", params.get("data_path"))
         return 1
-    # refusals come before any job runs: the executor would record an
-    # exception of a job as that job's failure
-    if slurm_requested(params):
-        raise NotImplementedError(
-            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
-            "spr is not ported; run it on the local executor")
+    rc = _maybe_slurm_swarm("spr", argv, params, items)
+    if rc is not None:
+        return rc
     dev = resolve_device(device)
 
     graph = JobGraph("spr")
@@ -249,11 +272,9 @@ def mode_tomo(argv, device="cuda"):
     if not items:
         logger.error("no input files match data_path=%r", params.get("data_path"))
         return 1
-    # refusals come before any job runs
-    if slurm_requested(params):
-        raise NotImplementedError(
-            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
-            "tomo is not ported; run it on the local executor")
+    rc = _maybe_slurm_swarm("tomo", argv, params, items)
+    if rc is not None:
+        return rc
     dev = resolve_device(device)
 
     def load_item(item):
@@ -323,12 +344,22 @@ def mode_gain(argv, device="cuda"):
 
 def mode_refine(argv, device="cuda"):
     params = _project_params(argv)
+    from pyp_tpu_torch.sched import bridge
+
+    if bridge.slurm_requested(params):
+        # multi-node refinement: one sbatch, slurm_nodes nodes of one rank
+        # per card joined into a torch.distributed group through
+        # PYP_TPU_COORDINATOR / NUM_PROCS / PROC_ID / LOCAL_RANK
+        script = bridge.write_distributed_refine_script(
+            params, int(params.get("slurm_nodes") or 1), "refine",
+            bridge.strip_slurm_flags(argv))
+        ex = bridge.select_executor(params)[1]
+        jid = ex.sbatch(script)
+        print(json.dumps({"script": str(script), "job_id": jid}))
+        return 0
     from pyp_tpu_torch.io import cistem, mrc
     from pyp_tpu_torch.pipeline import refine as ref_pipe
 
-    if slurm_requested(params):
-        logger.error("SLURM submission of refine is not yet ported")
-        return 2
     stack = mrc.read("stack.mrc").astype(np.float32)
     table = cistem.read_parameters("stack.cistem")
     n = stack.shape[-1]
@@ -338,8 +369,9 @@ def mode_refine(argv, device="cuda"):
         initial = mrc.read(init_path).astype(np.float32)
     elif params.get("refine_abinit") and not params.get("abinit_skip"):
         initial = _ab_initio_model(stack, table, params, device)
-        mrc.write(initial, "initial_model.mrc",
-                  pixel_size=float(params["scope_pixel"]))
+        if parallel.is_writer():
+            mrc.write(initial, "initial_model.mrc",
+                      pixel_size=float(params["scope_pixel"]))
     else:
         # featureless sphere initial model (the reference's fallback)
         from pyp_tpu_torch.core.filters import soft_spherical_mask
@@ -806,13 +838,6 @@ def mode_mask(argv, device="cuda"):
     return 0
 
 
-def _refuse_slurm(mode, params):
-    if slurm_requested(params):
-        raise NotImplementedError(
-            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
-            f"{mode} is not ported; run it on the local executor")
-
-
 def _csp_load_item(item, params):
     """Load one tilt-series' data + picks for a CSP pass. Returns (item2
     dict, meta, params-with-spin-default, nz) or None if the series has no
@@ -911,10 +936,11 @@ def _csp_one_series(item, params, ref, device):
     item2, meta, params, nz = loaded
     refined, acc, scores = csp_pipe.csp_swarm_one(item2, params, ref, ".",
                                                   device=device)
-    dump.parent.mkdir(exist_ok=True)
-    save_accumulators(acc, dump)
-    _csp_post_series(item["name"], item2["tilts"], refined, meta, params, nz,
-                     device)
+    if parallel.is_writer():
+        dump.parent.mkdir(exist_ok=True)
+        save_accumulators(acc, dump)
+        _csp_post_series(item["name"], item2["tilts"], refined, meta, params,
+                         nz, device)
     logger.info("csp %s: scores %s", item["name"],
                 [round(s, 3) for s in scores])
     return {"name": item["name"], "dump": str(dump),
@@ -944,13 +970,15 @@ def _csp_series_batch(group, params, ref, device):
         items2, batch_params, ref, ".", device=device)
     first = usable[0][1]["name"]
     dump = Path("swarm") / f"{first}.batch.acc.npz"
-    dump.parent.mkdir(exist_ok=True)
-    save_accumulators(acc, dump)
+    if parallel.is_writer():
+        dump.parent.mkdir(exist_ok=True)
+        save_accumulators(acc, dump)
     total = 0
     for (l, it), refined, scores in zip(usable, refined_list, scores_list):
         item2, meta, _p2, nz = l
-        _csp_post_series(it["name"], item2["tilts"], refined, meta,
-                         batch_params, nz, device)
+        if parallel.is_writer():
+            _csp_post_series(it["name"], item2["tilts"], refined, meta,
+                             batch_params, nz, device)
         logger.info("csp %s: scores %s", it["name"],
                     [round(s, 3) for s in scores])
         total += len(item2["coords"])
@@ -1053,7 +1081,9 @@ def mode_csp(argv, device="cuda"):
         logger.info("csp block %s: modes %s", block,
                     params.get("csp_refine_modes"))
     items = _discover_items(params)
-    _refuse_slurm("csp", params)
+    rc = _maybe_slurm_swarm("csp", argv, params, items)
+    if rc is not None:
+        return rc
     dev = resolve_device(device)
     ref_path = Path(str(params.get("csp_reference_model") or "")
                     or "initial_model.mrc")
@@ -1068,6 +1098,7 @@ def mode_csp(argv, device="cuda"):
         return 0
 
     def merge_fn(results, missing):
+        parallel.barrier()  # rank 0 wrote the dumps
         accs = [load_accumulators(r["dump"], device=dev)
                 for r in results.values() if r]
         if not accs:
@@ -1121,7 +1152,6 @@ def mode_polish(argv, device="cuda"):
                                                table_to_poses)
     from pyp_tpu_torch.pipeline.spr import apply_gain, load_movie
 
-    _refuse_slurm("polish", params)
     dev = resolve_device(device)
     table = cistem.read_parameters("stack.cistem")
     dataset = params.get("data_set") or "dataset"
@@ -1195,7 +1225,6 @@ def mode_sva(argv, device="cuda"):
     from pyp_tpu_torch.ops import sva as sva_ops
     from pyp_tpu_torch.ops.extract import subvolume_gather
 
-    _refuse_slurm("sva", params)
     dev = resolve_device(device)
     box = int(params.get("sva_box") or 48)
     # extraction boundary (extract_bnd): cut a larger window, keep box³
@@ -1279,12 +1308,17 @@ def mode_sprtrain(argv, device="cuda"):
     U-Net heatmap model saved to picker_model.npz, which
     `-detect_method nn` then uses."""
     params = _project_params(argv)
+    from pyp_tpu_torch.sched import bridge
+
+    if bridge.slurm_requested(params):
+        print(json.dumps(bridge.submit_training("sprtrain", params, argv),
+                         indent=1))
+        return 0
     from pyp_tpu_torch import as_f32, resolve_device
     from pyp_tpu_torch.io.metadata import ItemMetadata
     from pyp_tpu_torch.models import io as mio
     from pyp_tpu_torch.models import picker as nn_picker
 
-    _refuse_slurm("sprtrain", params)
     dev = resolve_device(device)
     mics, coords = [], []
     for p in sorted(Path(".").glob("*.meta.npz")):
@@ -1331,12 +1365,17 @@ def mode_tomotrain(argv, device="cuda"):
     per-slice heatmap supervision around each 3D pick, written to
     picker_model_tomo.npz."""
     params = _project_params(argv)
+    from pyp_tpu_torch.sched import bridge
+
+    if bridge.slurm_requested(params):
+        print(json.dumps(bridge.submit_training("tomotrain", params, argv),
+                         indent=1))
+        return 0
     from pyp_tpu_torch import resolve_device
     from pyp_tpu_torch.io import boxfiles, mrc
     from pyp_tpu_torch.models import io as mio
     from pyp_tpu_torch.models import picker as nn_picker
 
-    _refuse_slurm("tomotrain", params)
     dev = resolve_device(device)
     pixel = float(params["scope_pixel"])
     rad_px = max(3, int(float(params["tomo_spk_rad"]) / max(
@@ -2149,8 +2188,8 @@ def mode_workflow(argv, device="cuda"):
 def mode_stream(argv, device="cuda"):
     """Launch the on-the-fly session daemon (streampyp role): watch
     data_path for new movies, process each, incrementally re-classify, on
-    `device`. SLURM submission of the daemon is not ported and raises by
-    name."""
+    `device`. With the SLURM parameters the daemon is submitted as one
+    long scheduler job instead."""
     params = _project_params(argv)
     from pyp_tpu_torch.stream.daemon import SessionDaemon, SessionManager
 
@@ -2178,11 +2217,13 @@ def mode_stream(argv, device="cuda"):
         # source): the session watches <dir>/<movie_pattern>
         pattern = str(Path(pattern)
                       / str(params.get("movie_pattern") or "*.tif"))
-    if slurm_requested(params):
-        # the JAX package submits the daemon as one long scheduler job
-        raise NotImplementedError(
-            "SLURM submission (slurm_queue / slurm_host / slurm_submit) of "
-            "the stream daemon is not ported; run it in this process")
+    from pyp_tpu_torch.sched import bridge
+
+    if bridge.slurm_requested(params):
+        # the daemon itself runs as one long scheduler job (resources from
+        # the slurm daemon tier)
+        print(json.dumps(bridge.submit_daemon(params, argv), indent=1))
+        return 0
     daemon = SessionDaemon(
         pattern, params,
         poll_interval=float(params.get("stream_poll_interval") or 5.0),
@@ -2201,6 +2242,24 @@ def mode_stream(argv, device="cuda"):
     return 0
 
 
+def mode_worker(argv, device="cuda"):
+    """SLURM array element entry: run a serialized job payload
+    ({"mode", "argv"}) with PYP_TPU_WORKER set, so it executes and never
+    re-submits; the variable is restored after (the JAX package leaves it
+    set, which a caller in the same process would inherit)."""
+    payload = json.loads(Path(argv[0]).read_text())
+    prev = os.environ.get("PYP_TPU_WORKER")
+    os.environ["PYP_TPU_WORKER"] = "1"
+    try:
+        return main([payload["mode"]] + payload.get("argv", []),
+                    device=device)
+    finally:
+        if prev is None:
+            del os.environ["PYP_TPU_WORKER"]
+        else:
+            os.environ["PYP_TPU_WORKER"] = prev
+
+
 PORTED = {"spr": mode_spr, "tomo": mode_tomo, "extract": mode_extract,
           "gain": mode_gain,
           "refine": mode_refine, "classify2d": mode_classify2d,
@@ -2215,21 +2274,29 @@ PORTED = {"spr": mode_spr, "tomo": mode_tomo, "extract": mode_extract,
           "params": mode_params, "filter": mode_filter, "byp": mode_byp,
           "boxedit": mode_boxedit, "tomoedit": mode_tomoedit,
           "export_session": mode_export_session, "report": mode_report,
-          "workflow": mode_workflow, "stream": mode_stream}
+          "workflow": mode_workflow, "stream": mode_stream,
+          "worker": mode_worker}
 
 
 def main(argv=None, device="cuda"):
-    """Entry point: `main([mode, ...], device=...)` for the ported modes
-    (cli.PORTED). Returns the exit code; `worker`, not yet ported, and
-    unknown modes return 2. A project file that sets `notify_mongo_uri`
-    mirrors the log there, and `notify_email` mails the end of the spr,
-    tomo, refine, csp and classify3d modes, as in the JAX package."""
+    """Entry point: `main([mode, ...], device=...)` for every mode
+    (cli.PORTED). Returns the exit code; an unknown mode returns 2. With
+    PYP_TPU_COORDINATOR set (a rank of the distributed refine script) the
+    process first joins its torch.distributed group on `device`. A project
+    file that sets `notify_mongo_uri` mirrors the log there, and
+    `notify_email` mails the end of the spr, tomo, refine, csp and
+    classify3d modes, as in the JAX package. With PYP_TPU_RANK_REPORT set
+    to a directory, each process writes rank<r>.json there when its mode
+    returns: its rank, the group's backend and the kernel launches."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0 if argv else 2
     mode, rest = argv[0], argv[1:]
     if mode in PORTED:
+        # a rank of a distributed run joins its group before any device
+        # work (no-op for single-process runs)
+        parallel.init_distributed(device=device)
         # observability (the notify tab): log mirroring and completion mail
         saved = cfg.load_parameters(".") or {}
         mongo_uri = str(saved.get("notify_mongo_uri") or "")
@@ -2250,12 +2317,28 @@ def main(argv=None, device="cuda"):
                        f"{'done' if rc == 0 else 'FAILED'}",
                        f"mode={mode} rc={rc} cwd={Path.cwd()}",
                        smtp_host=str(saved.get("notify_smtp") or "localhost"))
+        if os.environ.get("PYP_TPU_RANK_REPORT"):
+            _rank_report(os.environ["PYP_TPU_RANK_REPORT"], mode, rc)
         return rc
-    if mode in MODES:
-        logger.error("mode %r is not yet ported to pyp_tpu_torch", mode)
-    else:
-        logger.error("unknown mode %r", mode)
+    logger.error("unknown mode %r", mode)
     return 2
+
+
+def _rank_report(out_dir, mode, rc):
+    """rank<r>.json in `out_dir`: this process's rank, world size and
+    backend, the mode's exit code and the kernel launches it counted."""
+    import torch.distributed as dist
+
+    from pyp_tpu_torch.ops import kernels
+
+    rank = dist.get_rank() if parallel.distributed() else 0
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "mode": mode, "rc": rc,
+        "world_size": dist.get_world_size() if parallel.distributed() else 1,
+        "backend": dist.get_backend() if parallel.distributed() else None,
+        "launches": {"shift_scored_match":
+                     kernels.shift_scored_match.launches}}))
 
 
 if __name__ == "__main__":

@@ -6,11 +6,14 @@ load/save_pyp_parameters :1159), and per-iteration schedule resolution
 (`param()` :362 — "8:7:6:4:3" means value for iterations 2,3,4,5,6...).
 
 The port's own copy of pyp_tpu/config/params.py; keep the two in step.
+The port writes the project file atomically (the elements of a SLURM
+array share it).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import tomllib
 from pathlib import Path
 
@@ -103,7 +106,11 @@ def save_parameters(params: dict, directory="."):
             continue
         lines.append(f"{k} = {_toml_value(v)}")
     unknown = [k for k in params if k not in known]
-    path.write_text("\n".join(lines) + "\n")
+    # written under a private name, then renamed: the elements of a SLURM
+    # array share the project file, and none reads a half-written one
+    tmp = path.with_name(f".{path.name}.{os.getpid()}")
+    tmp.write_text("\n".join(lines) + "\n")
+    os.replace(tmp, path)
     return path
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import threading
 
 import numpy as np
 import torch
@@ -51,17 +52,31 @@ from pyp_tpu_torch.ops.refine3d import (
 )
 
 
+_TF32_LOCK = threading.Lock()
+_tf32_entries = 0
+_tf32_saved = False
+
+
 @contextlib.contextmanager
 def _fp32_matmul():
     """Full float32 matmuls (TF32 off) on a card inside the public FRM
-    entry points, which it decorates; the previous setting is restored
-    after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    entry points, which it decorates. The switch is process-wide, so the
+    entries of every thread are counted under one lock: the first in
+    saves the setting and clears it, the last out restores it, and no
+    thread inside ever sees TF32 on."""
+    global _tf32_entries, _tf32_saved
+    with _TF32_LOCK:
+        if _tf32_entries == 0:
+            _tf32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_entries += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _TF32_LOCK:
+            _tf32_entries -= 1
+            if _tf32_entries == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _tf32_saved
 
 
 def _abs2(z):

@@ -456,9 +456,11 @@ def _average_spectra_scan(F_full, shifts, doses, ny: int, nx: int,
                           pixel_size: float = 1.0,
                           dose_weighted: bool = True):
     """The aligned (dose-weighted) average from precomputed spectra,
-    accumulated in chunks of frames. The dose weights are normalized by
-    sqrt(sum_f w_f²) floored at 1e-6 (`dose_weighted_average` floors its
-    norm at 1e-8 through dose_weight_2d)."""
+    weighted in chunks of frames and summed frame by frame, so the chunk
+    (which follows the card's free memory) changes no bit of the result.
+    The dose weights are normalized by sqrt(sum_f w_f²) floored at 1e-6
+    (`dose_weighted_average` floors its norm at 1e-8 through
+    dose_weight_2d)."""
     n_frames = F_full.shape[0]
     dev = F_full.device
     fy, fx = freq_grid_2d(ny, nx, device=dev)
@@ -473,22 +475,22 @@ def _average_spectra_scan(F_full, shifts, doses, ny: int, nx: int,
         if dose_weighted:
             F = F * (dose_weight(g[None], doses[lo:lo + step, None, None])
                      / wnorm)
-        acc += F.sum(dim=0)
+        for frame in F:
+            acc += frame
     return torch.fft.irfft2(acc, s=(ny, nx)) / n_frames
 
 
 def _average_scan(frames, shifts, doses, pixel_size: float = 1.0,
                   dose_weighted: bool = True):
-    """Aligned (dose-weighted) average of real-space frames, accumulated in
-    chunks: peak memory is one chunk's spectra instead of the whole
-    stack's."""
+    """Aligned (dose-weighted) average of real-space frames, transformed
+    in chunks (peak memory is one chunk's spectra instead of the whole
+    stack's) and summed in Fourier space frame by frame, so the chunk
+    (which follows the card's free memory) changes no bit of the result."""
     n_frames, ny, nx = frames.shape
     dev = frames.device
     doses = torch.as_tensor(doses, dtype=torch.float32, device=dev)
-    acc = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
+    acc = torch.zeros((ny, nx // 2 + 1), dtype=torch.complex64, device=dev)
     step = _fft_chunk(n_frames, ny, nx, dev)
-    # the norm runs over ALL frames, so each chunk is summed unnormalized
-    # in Fourier space and the chunks' real-space sums add up
     fy, fx = freq_grid_2d(ny, nx, device=dev)
     g = torch.sqrt((fy / pixel_size) ** 2 + (fx / pixel_size) ** 2)
     wnorm = _dose_norm(g, doses) if dose_weighted else None
@@ -498,8 +500,9 @@ def _average_scan(frames, shifts, doses, pixel_size: float = 1.0,
         if dose_weighted:
             F = F * (dose_weight(g[None], doses[lo:lo + step, None, None])
                      / wnorm)
-        acc += torch.fft.irfft2(F.sum(dim=0), s=(ny, nx))
-    return acc / n_frames
+        for frame in F:
+            acc += frame
+    return torch.fft.irfft2(acc, s=(ny, nx)) / n_frames
 
 
 def align_movie_large(

@@ -53,6 +53,17 @@ class Reconstruction(NamedTuple):
     freqs: torch.Tensor       # shell centers (cycles/pixel)
 
 
+def zero_accumulators(n: int, pad: int, device) -> Accumulators:
+    """Empty accumulators of box `n` at pad factor `pad` on `device`."""
+    pn = pad * n
+    shape = (pn, pn, pn // 2 + 1)
+    return Accumulators(
+        torch.zeros(shape, dtype=torch.complex64, device=device),
+        torch.zeros(shape, dtype=torch.float32, device=device),
+        torch.zeros(shape, dtype=torch.complex64, device=device),
+        torch.zeros(shape, dtype=torch.float32, device=device))
+
+
 def _ctf_grids(n, pixel_size, ctf_params, voltage_kv, cs_mm, w):
     """Full-plane CTF images for a batch of particles: (B, n, n//2+1)."""
     ky, kx = _wavenumbers(n, ctf_params.device)
@@ -153,14 +164,8 @@ def accumulate(
         blur_terms = [(euler_to_matrix(poses[:, 0], poses[:, 1],
                                        poses[:, 2]), weights)]
 
-    pn = pad * n
-    nxf = pn // 2 + 1
     if prev is None:
-        prev = Accumulators(
-            torch.zeros((pn, pn, nxf), dtype=torch.complex64, device=dev),
-            torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev),
-            torch.zeros((pn, pn, nxf), dtype=torch.complex64, device=dev),
-            torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev))
+        prev = zero_accumulators(n, pad, dev)
     for R, wb in blur_terms:
         for k in range(sym_mats.shape[0]):
             parts = insert_slices_halves(
@@ -201,14 +206,8 @@ def accumulate_matrices(
     cp = torch.stack([defoci, defoci, z, z], 1)
     ctfs = _ctf_grids(n, pixel_size, cp, voltage_kv, cs_mm,
                       amplitude_contrast)
-    pn = pad * n
-    nxf = pn // 2 + 1
     if prev is None:
-        prev = Accumulators(
-            torch.zeros((pn, pn, nxf), dtype=torch.complex64, device=dev),
-            torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev),
-            torch.zeros((pn, pn, nxf), dtype=torch.complex64, device=dev),
-            torch.zeros((pn, pn, nxf), dtype=torch.float32, device=dev))
+        prev = zero_accumulators(n, pad, dev)
     ewald_c = 0.0
     if iewald:
         ewald_c = (float(np.sign(iewald)) * ctf_model.wavelength_host(voltage_kv)
@@ -288,11 +287,36 @@ def reconstruct(
     the reference's padded spectrum (pad 2, Fourier-cropped with the stack
     under crop_to) is built once and shared by every batch. lblur_nrot > 1
     with lblur_range: likelihood blurring (lblur_bank)."""
+    acc, n_rec, pad = accumulate_stack(
+        stack, poses, ctf_params, pixel_size, subset=subset, weights=weights,
+        symmetry=symmetry, voltage_kv=voltage_kv, cs_mm=cs_mm,
+        amplitude_contrast=amplitude_contrast, batch=batch, pad=pad,
+        gridding=gridding, crop_to=crop_to, iewald=iewald,
+        lblur_nrot=lblur_nrot, lblur_range=lblur_range,
+        ref_volume=ref_volume, device=device)
+    return finalize(acc, n_rec, pad, wiener, gridding)
+
+
+def accumulate_stack(
+    stack, poses, ctf_params, pixel_size,
+    subset=None, weights=None, symmetry: str = "C1",
+    voltage_kv: float = 300.0, cs_mm: float = 2.7,
+    amplitude_contrast: float = 0.07, batch: int = 256,
+    pad: int = DEFAULT_PAD, gridding: str = "trilinear",
+    crop_to: int = None, iewald: int = 0,
+    lblur_nrot: int = 0, lblur_range: float = 20.0,
+    ref_volume=None, rows: slice | None = None, device="cuda",
+):
+    """The insertion half of `reconstruct` (same arguments) for the rows
+    `rows` of the stack (all by default; an empty range gives empty
+    accumulators). Returns (Accumulators, n_rec, pad): the grid and pad
+    factor `finalize` takes."""
     dev = resolve_device(device)
     n = stack.shape[-1]
     B = stack.shape[0]
     subset = np.arange(B) % 2 if subset is None else subset
     weights = np.ones(B, dtype=np.float32) if weights is None else weights
+    lo, hi, _ = (rows or slice(0, B)).indices(B)
 
     def on(x, dtype=torch.float32):
         x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -314,9 +338,9 @@ def reconstruct(
         if n_rec < n:
             rv = fourier_crop_3d(rv, (n_rec, n_rec, n_rec))
         ref_fourier = volume_to_fourier(rv, pad=2)
-    acc = None
-    for i in range(0, B, batch):
-        sl = slice(i, min(i + batch, B))
+    acc = zero_accumulators(n_rec, pad, dev)
+    for i in range(lo, hi, batch):
+        sl = slice(i, min(i + batch, hi))
         xb = on(stack[sl])
         pb = on(poses[sl])
         if n_rec < n:
@@ -327,7 +351,7 @@ def reconstruct(
             on(weights[sl]), n_rec, pixel_rec, voltage_kv, cs_mm,
             amplitude_contrast, symmetry, pad, prev=acc, gridding=gridding,
             iewald=iewald, lblur=lblur, ref_fourier=ref_fourier)
-    return finalize(acc, n_rec, pad, wiener, gridding)
+    return acc, n_rec, pad
 
 
 def save_accumulators(acc: Accumulators, path):

@@ -6,8 +6,12 @@ csp refinement modes -> per-series reconstruction dumps -> cspmerge): each
 tilt-series runs ops.csp joint refinement (region patch grids through
 geometry.region_of), its particle projections are inserted into
 reconstruction accumulators with full R_eff matrices, and series-level
-accumulators merge with a sum. Everything runs on one device: the
-multi-GPU split of the JAX package's mesh path is not ported.
+accumulators merge with a sum. Inside a torch.distributed group of two
+ranks or more (`parallel.pipeline_mesh`) the batched series refinement
+splits its series over the ranks (`parallel.csp_refine_batch_sharded`)
+and each series' insertion its projection rows
+(`parallel.sharded_accumulate_matrices`), as the JAX package shards both
+over its mesh; rank 0 alone writes the bundles and maps.
 
 The bundle's "xf". Where the bundle carries the scalar `xf_shift_sign`
 (written by the port's `tomo`), sign x xf[:, :2] is the aligning shift of
@@ -27,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pyp_tpu_torch import as_f32, resolve_device
+from pyp_tpu_torch import as_f32, parallel, resolve_device
 from pyp_tpu_torch.config.params import param
 from pyp_tpu_torch.io.metadata import ItemMetadata
 from pyp_tpu_torch.utils import Timer, get_logger
@@ -98,7 +102,8 @@ def _persist(meta, refined, pscores):
     meta["xf"] = xf_from_series(meta, refined.tilt_shifts.cpu().numpy(),
                                 refined.axis_angles.cpu().numpy())
     meta["tlt"] = refined.tilt_angles.cpu().numpy()
-    meta.save()
+    if parallel.is_writer():
+        meta.save()
 
 
 def csp_swarm_one(item: dict, params: dict, ref_volume, work_dir=".",
@@ -299,6 +304,13 @@ def _reconstruct_series(tilts, refined, defocus, params, t_lo, t_hi,
             rv = fourier_crop_3d(rv, (box, box, box))
         if rv.shape[-1] == box:
             kw["ref_fourier"] = volume_to_fourier(rv, pad=2)
+    mesh = parallel.pipeline_mesh(params, dev)
+    if mesh is not None:
+        # the (tilt x particle) projection rows split over the ranks; one
+        # all_reduce merges the accumulators (the cspmerge reduction)
+        return parallel.sharded_accumulate_matrices(
+            mesh, windows, rows_R.detach(), rows_shift, rows_df.detach(),
+            rows_sub, rows_w, box, pixel, **kw)
     return rec.accumulate_matrices(
         windows, rows_R.detach(), as_f32(rows_shift, dev), rows_df.detach(),
         torch.as_tensor(rows_sub, device=dev), as_f32(rows_w, dev),
@@ -499,16 +511,27 @@ def csp_swarm_batch(items: list, params: dict, ref_volume, work_dir=".",
         cfg["modes"], cfg["grid_tols"], cfg["grid_steps"], cfg["spin_step"],
         angle_step=cfg["angle_step"], shift_step=cfg["shift_step"],
         random_iters=cfg["random_iters"])
+    mesh = parallel.pipeline_mesh(params, dev)
+    kw = dict(iters_per_mode=cfg["iters"], lr=cfg["lr"],
+              reg_weight=cfg["reg_weight"], voltage_kv=cfg["voltage_kv"],
+              cs_mm=cfg["cs_mm"],
+              amplitude_contrast=cfg["amplitude_contrast"],
+              step_tol=cfg["step_tol"], value_tol=cfg["value_tol"],
+              series_vmap=True)
     with Timer(f"csp batch refinement ({len(setups)} series)"):
-        refined_b, mode_scores_b, pscores_b = csp_ops.csp_refine_batch(
-            cp_b, xv_b, wc_b, df_b, mask_pts, Fref, tw_b, va_b,
-            offsets_by_mode, spin_offsets, cfg["modes"], box, pixel,
-            iters_per_mode=cfg["iters"], lr=cfg["lr"],
-            reg_weight=cfg["reg_weight"], voltage_kv=cfg["voltage_kv"],
-            cs_mm=cfg["cs_mm"], amplitude_contrast=cfg["amplitude_contrast"],
-            step_tol=cfg["step_tol"], value_tol=cfg["value_tol"],
-            series_per_dispatch=cfg["series_per_dispatch"],
-            series_vmap=True)
+        if mesh is not None and len(setups) > 1:
+            # series are data-parallel across the ranks: each rank runs
+            # whole series (the reference fans one cspswarm task per series)
+            refined_b, mode_scores_b, pscores_b = \
+                parallel.csp_refine_batch_sharded(
+                    mesh, cp_b, xv_b, wc_b, df_b, mask_pts, Fref, tw_b, va_b,
+                    offsets_by_mode, spin_offsets, cfg["modes"], box, pixel,
+                    **kw)
+        else:
+            refined_b, mode_scores_b, pscores_b = csp_ops.csp_refine_batch(
+                cp_b, xv_b, wc_b, df_b, mask_pts, Fref, tw_b, va_b,
+                offsets_by_mode, spin_offsets, cfg["modes"], box, pixel,
+                series_per_dispatch=cfg["series_per_dispatch"], **kw)
         mode_scores_b = mode_scores_b.cpu().numpy()
         pscores_b = pscores_b.cpu().numpy()
 
@@ -549,8 +572,9 @@ def csp_merge(accumulators, box: int, params: dict, work_dir=".",
     stem = f"{dataset}_csp_{iteration:02d}"
     for suffix, vol in (("", out.volume), ("_half1", out.half1),
                         ("_half2", out.half2)):
-        mrc.write(vol.cpu().numpy().astype(np.float32),
-                  maps_dir / f"{stem}{suffix}.mrc", pixel_size=pixel)
+        if parallel.is_writer():
+            mrc.write(vol.cpu().numpy().astype(np.float32),
+                      maps_dir / f"{stem}{suffix}.mrc", pixel_size=pixel)
     res = float(fsc_mod.resolution_at_threshold(out.freqs.cpu(),
                                                 out.fsc.cpu(), pixel, 0.143))
     logger.info("csp merge: FSC(0.143) = %.2f Å", res)

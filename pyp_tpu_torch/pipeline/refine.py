@@ -22,6 +22,14 @@ and the end of the run can write the matching projections at the final
 poses (refine_fmatch, <dataset>_match.mrc). `check_ported` refuses only an
 engine other than frm and gather: there is no silent switch to another
 engine or device.
+
+Inside a torch.distributed group of two ranks or more
+(`parallel.pipeline_mesh`), every iteration splits its rows over the
+ranks, as the JAX package shards them over its mesh: the gather engine
+through `parallel.sharded_refine_batch`, the FRM engine by each rank
+refining its contiguous range against both gold-standard banks, the
+reconstructions through `parallel.reconstruct_sharded`; results are
+replicated, and rank 0 alone writes maps/.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pyp_tpu_torch import as_f32, resolve_device
+from pyp_tpu_torch import as_f32, parallel, resolve_device
 from pyp_tpu_torch.analysis import scores
 from pyp_tpu_torch.analysis.plots import plot_iteration_changes
 from pyp_tpu_torch.config.params import param
@@ -108,20 +116,32 @@ def _dof_freeze(params: dict) -> set:
     return frozen
 
 
+def _reconstruct(stack, poses, ctf_params, pixel, rc_kwargs, device,
+                 mesh=None, crop_to=None):
+    """`reconstruct.reconstruct` on `device`, or over `mesh`."""
+    if mesh is not None:
+        return parallel.reconstruct_sharded(mesh, stack, poses, ctf_params,
+                                            pixel, crop_to=crop_to,
+                                            **rc_kwargs)
+    return rec.reconstruct(stack, poses, ctf_params, pixel, crop_to=crop_to,
+                           device=device, **rc_kwargs)
+
+
 def reconstruct_banded(stack, poses, ctf_params, pixel, high_res, rc_kwargs,
-                       device="cpu"):
+                       device="cpu", mesh=None):
     """Reconstruction on the band-limited auto-crop grid, Fourier-padded
     back to the data box with the FSC remapped shell-for-shell onto the data
     axis. An intermediate map only needs fidelity to the matching band
-    `high_res`, so cropping cuts the insertion work by (n_rec/n)^2."""
+    `high_res`, so cropping cuts the insertion work by (n_rec/n)^2. With
+    `mesh` the insertion is split over its ranks."""
     n_data = int(stack.shape[-1])
     r_max = n_data * pixel / max(high_res, 2.0 * pixel)
     n_rec = min(n_data, int(np.ceil((2.0 * r_max + 8.0) / 16.0)) * 16)
     if n_rec >= 0.9 * n_data:  # negligible saving: skip crop+upsample
-        return rec.reconstruct(stack, poses, ctf_params, pixel,
-                               device=device, **rc_kwargs)
-    out = rec.reconstruct(stack, poses, ctf_params, pixel, crop_to=n_rec,
-                          device=device, **rc_kwargs)
+        return _reconstruct(stack, poses, ctf_params, pixel, rc_kwargs,
+                            device, mesh)
+    out = _reconstruct(stack, poses, ctf_params, pixel, rc_kwargs, device,
+                       mesh, crop_to=n_rec)
     # shell k on the crop grid IS data wavenumber k: remap the FSC onto the
     # data shell axis (zero beyond the band) and upsample the maps by
     # centered Fourier pad
@@ -183,12 +203,11 @@ def _reference_mask(params, ref_volume, pixel, dev):
     return None
 
 
-def _refine_gather(match_rows, table, ctf_params, ref_volume, params,
-                   iteration, pixel, batch, global_search, shell_w, dev):
-    """Gather-engine poses for every row: refine3d.refine_batch per batch
-    against the combined reference."""
+def gather_search_kwargs(params, iteration, pixel, global_search) -> dict:
+    """The keyword arguments of `refine3d.refine_batch` at `iteration`
+    (the gather engine's search and polish settings)."""
     rhref = float(param(params["refine_rhref"], iteration))
-    rb_kwargs = dict(
+    return dict(
         angular_step=float(param(params["refine_dang"], iteration)),
         psi_step=float(params["refine_psi_step"]),
         low_res=float(params["refine_rlref"]),
@@ -206,12 +225,27 @@ def _refine_gather(match_rows, table, ctf_params, ref_volume, params,
         cs_mm=float(params["scope_cs"]),
         amplitude_contrast=float(params["scope_wgh"]),
     )
+
+
+def _refine_gather(match_rows, table, ctf_params, ref_volume, params,
+                   iteration, pixel, batch, global_search, shell_w, dev,
+                   mesh=None):
+    """Gather-engine poses for every row: refine3d.refine_batch per batch
+    against the combined reference; with `mesh`, batches of `batch` rows
+    per rank through parallel.sharded_refine_batch."""
+    rb_kwargs = gather_search_kwargs(params, iteration, pixel, global_search)
     ref_dev = as_f32(ref_volume, dev)
     n_total = table.n_rows
+    step = batch * (1 if mesh is None else mesh.size)
     results = []
-    for lo in range(0, n_total, batch):
-        hi = min(lo + batch, n_total)
+    for lo in range(0, n_total, step):
+        hi = min(lo + step, n_total)
         init = None if global_search else table_to_poses(table, pixel)[lo:hi]
+        if mesh is not None:
+            results.append(parallel.sharded_refine_batch(
+                mesh, match_rows(slice(lo, hi)), ctf_params[lo:hi], ref_dev,
+                pixel, init_poses=init, shell_weights=shell_w, **rb_kwargs))
+            continue
         results.append(refine3d.refine_batch(
             match_rows(slice(lo, hi)), ctf_params[lo:hi], ref_dev, pixel,
             init_poses=init, shell_weights=shell_w, device=dev, **rb_kwargs))
@@ -222,7 +256,7 @@ def _refine_gather(match_rows, table, ctf_params, ref_volume, params,
 
 def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
                 params, iteration, pixel, n_box, batch, global_search,
-                fsc_curve, shell_w, dev):
+                fsc_curve, shell_w, dev, mesh=None):
     """FRM-engine poses for every row. One direction bank per reference
     (the combined map, or with the gold standard each half map), each
     half-set's rows matched in batches against their own bank; then, on
@@ -230,7 +264,9 @@ def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
     refine3d.local_refine against the same reference, which removes the
     lattice quantization (~step/2) of the FRM directions. Each particle's
     result depends only on its own row, so routing rows by half gives what
-    running every row through both banks and selecting would."""
+    running every row through both banks and selecting would. With `mesh`
+    each rank refines its contiguous range of the rows (against both
+    banks) and the rows are gathered in rank order."""
     rhref = float(param(params["refine_rhref"], iteration))
     high_res = max(rhref * 0.8, 2.1 * pixel)
     searchx = float(params["refine_searchx"])
@@ -262,7 +298,14 @@ def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
     gold = bool(params.get("refine_goldstandard")) and ref_halves is not None
     refs = tuple(ref_halves) if gold else (ref_volume,)
     halves = _half_subsets(table) if gold else np.zeros(n_total, np.int64)
-    groups = [np.nonzero(halves == h)[0] for h in range(len(refs))]
+    lo_r, hi_r = 0, n_total
+    if mesh is not None:
+        from pyp_tpu_torch.parallel.multihost import process_range
+
+        lo_r, hi_r = (process_range(n_total, mesh.size, mesh.rank)
+                      if mesh.active else (n_total, n_total))
+    groups = [lo_r + np.nonzero(halves[lo_r:hi_r] == h)[0]
+              for h in range(len(refs))]
     # pose priors restrict the local search to a cone around the current
     # pose; without priors the local mode searches the full lattice
     cone = (None if global_search or not params.get("refine_priors", True)
@@ -271,6 +314,8 @@ def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
     all_poses = torch.zeros((n_total, 5), device=dev)
     all_scores = torch.zeros(n_total, device=dev)
     for rows_h, ref in zip(groups, refs):
+        if not len(rows_h):
+            continue
         bank = cfg.bank(volume_to_fourier(as_f32(ref, dev), pad=iblow))
         logger.info("FRM bank iter %d: D=%d R=%d n_psi=%d (%.2f GiB); "
                     "polar=%s; %d rows", iteration, *bank.FUc.shape,
@@ -301,6 +346,8 @@ def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
         # polish activation memory grows with batch x band points
         pstep = max(64, batch // max(1, (n_box // 128) ** 2))
         for rows_h, ref in zip(groups, refs):
+            if not len(rows_h):
+                continue
             F = volume_to_fourier(as_f32(ref, dev), pad=iblow)
             for lo in range(0, len(rows_h), pstep):
                 rows = rows_h[lo:lo + pstep]
@@ -317,6 +364,9 @@ def _refine_frm(match_rows, table, ctf_params, ref_volume, ref_halves,
                     weights=shell_w, pose_mask=pose_mask)
                 all_poses[r_t] = p
                 all_scores[r_t] = sc
+    if mesh is not None:
+        all_poses, all_scores = parallel.spmd.gather_range(
+            mesh, [all_poses[lo_r:hi_r], all_scores[lo_r:hi_r]], n_total)
     return frm.to_refine_result(all_poses, all_scores,
                                 n_band_points=len(cfg.radii) * cfg.n_psi)
 
@@ -341,6 +391,7 @@ def refinement_iteration(
     the consistency test of reconstruct_shapr=consistency."""
     check_ported(params)
     dev = resolve_device(device)
+    mesh = parallel.pipeline_mesh(params, dev)
     pixel = pixel_hint(table, params)
     rhref = float(param(params["refine_rhref"], iteration))
     mode = params.get("refine_mode", "local")
@@ -413,11 +464,12 @@ def refinement_iteration(
                 merged = _refine_frm(
                     match_rows, table, ctf_params, ref_volume, ref_halves,
                     params, iteration, pixel, n_box, batch, global_search,
-                    fsc_curve, shell_w, dev)
+                    fsc_curve, shell_w, dev, mesh)
             else:
                 merged = _refine_gather(
                     match_rows, table, ctf_params, ref_volume, params,
-                    iteration, pixel, batch, global_search, shell_w, dev)
+                    iteration, pixel, batch, global_search, shell_w, dev,
+                    mesh)
             table = poses_into_table(table, merged, pixel,
                                      freeze=_dof_freeze(params))
 
@@ -511,7 +563,7 @@ def refinement_iteration(
                     and iteration >= int(params["refine_maxiter"]) + 1)
         if rrec > 2.0 * pixel:
             out = reconstruct_banded(rec_stack, poses, ctf_params, pixel,
-                                     rrec, rc_kwargs, device=dev)
+                                     rrec, rc_kwargs, device=dev, mesh=mesh)
         elif bool(params.get("reconstruct_crop", True)) and not is_final:
             try:  # cover this iteration's band, the next one's, and polish
                 rhref_next = float(param(params["refine_rhref"], iteration + 1))
@@ -520,10 +572,10 @@ def refinement_iteration(
             out = reconstruct_banded(
                 rec_stack, poses, ctf_params, pixel,
                 max(min(rhref, rhref_next) * 0.7, 2.0 * pixel),
-                rc_kwargs, device=dev)
+                rc_kwargs, device=dev, mesh=mesh)
         else:
-            out = rec.reconstruct(rec_stack, poses, ctf_params, pixel,
-                                  device=dev, **rc_kwargs)
+            out = _reconstruct(rec_stack, poses, ctf_params, pixel,
+                               rc_kwargs, dev, mesh)
     res_a = float(fsc_mod.resolution_at_threshold(
         out.freqs, out.fsc, pixel,
         float(params.get("refine_fsc_threshold") or 0.143)))
@@ -594,11 +646,17 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
     <stem>_<it>_sharp.mrc; with model_fit each iteration appends its PDB
     fit to maps/<dataset>_model_fit.txt (and `model_cc` to the history);
     with refine_fmatch the run ends by writing maps/<dataset>_match.mrc,
-    the projections of the final map at the final poses."""
+    the projections of the final map at the final poses.
+
+    In a distributed group every rank runs the loop on the same inputs
+    and rank 0 alone writes; the function returns on every rank once the
+    files are written."""
     check_ported(params)
     dev = resolve_device(device)
+    writer = parallel.is_writer()
     maps_dir = Path(work_dir) / "maps"
-    maps_dir.mkdir(parents=True, exist_ok=True)
+    if writer:
+        maps_dir.mkdir(parents=True, exist_ok=True)
     pixel = float(params["scope_pixel"])
     start = int(params.get("refine_iter") or 2)
     maxiter = int(params["refine_maxiter"])
@@ -688,14 +746,18 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
                                           it, pixel, dev)
         fsc_curve = _np(recon.fsc)
         ref = recon.volume
-        mrc.write(_np(ref).astype(np.float32), maps_dir / f"{stem}_{it:02d}.mrc",
-                  pixel_size=pixel)
-        mrc.write(_np(recon.half1), maps_dir / f"{stem}_{it:02d}_half1.mrc",
-                  pixel_size=pixel)
-        mrc.write(_np(recon.half2), maps_dir / f"{stem}_{it:02d}_half2.mrc",
-                  pixel_size=pixel)
-        cistem.write_parameters(table, maps_dir / f"{stem}_{it:02d}.cistem")
-        if params.get("reconstruct_fbfact") and it == maxiter + 1:
+        if writer:
+            mrc.write(_np(ref).astype(np.float32),
+                      maps_dir / f"{stem}_{it:02d}.mrc", pixel_size=pixel)
+            mrc.write(_np(recon.half1),
+                      maps_dir / f"{stem}_{it:02d}_half1.mrc",
+                      pixel_size=pixel)
+            mrc.write(_np(recon.half2),
+                      maps_dir / f"{stem}_{it:02d}_half2.mrc",
+                      pixel_size=pixel)
+            cistem.write_parameters(table,
+                                    maps_dir / f"{stem}_{it:02d}.cistem")
+        if params.get("reconstruct_fbfact") and it == maxiter + 1 and writer:
             # Guinier B over the refined band, applied negated to the final
             # map, written beside the unsharpened one
             bfac = guinier_bfactor(ref, pixel, max_res=max(res_a, 2.2 * pixel))
@@ -706,9 +768,10 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
                       pixel_size=pixel)
             logger.info("fbfact: Guinier B %.1f Å² applied to final map",
                         bfac)
-        np.savetxt(maps_dir / f"{stem}_{it:02d}_fsc.txt",
-                   np.stack([_np(recon.freqs), _np(recon.fsc)], 1),
-                   header="freq_cyc_per_px fsc")
+        if writer:
+            np.savetxt(maps_dir / f"{stem}_{it:02d}_fsc.txt",
+                       np.stack([_np(recon.freqs), _np(recon.fsc)], 1),
+                       header="freq_cyc_per_px fsc")
         entry = {"iteration": it, "resolution": res_a}
         if prev_poses is not None:
             # per-iteration change statistics (+ histograms when matplotlib
@@ -720,9 +783,11 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
             sc = (np.asarray(table["score"]) if "score" in table
                   else np.zeros(table.n_rows))
             try:
-                plot_iteration_changes(
-                    d_ang, d_sh, sc, maps_dir / f"{stem}_{it:02d}_changes.png",
-                    iteration=it)
+                if writer:
+                    plot_iteration_changes(
+                        d_ang, d_sh, sc,
+                        maps_dir / f"{stem}_{it:02d}_changes.png",
+                        iteration=it)
             except (ImportError, ValueError, OSError) as e:
                 logger.warning("iteration-change plot skipped: %s", e)
             entry["median_angular_change_deg"] = round(
@@ -735,12 +800,14 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
             _model_fit(params, ref, pixel, it, entry,
                        maps_dir / f"{dataset}_model_fit.txt", dev)
         history.append(entry)
+        if not writer:
+            continue
         (maps_dir / f"{stem}_history.json").write_text(json.dumps(history))
         web = Web()
         if web.exists:
             web.write_reconstruction(dataset, it, res_a,
                                      fsc=_np(recon.fsc).tolist())
-    if params.get("refine_fmatch"):
+    if params.get("refine_fmatch") and writer:
         # matching projections at the final poses (visual pose QC), in
         # batches of 512
         poses_f = table_to_poses(table, pixel)
@@ -753,6 +820,7 @@ def refine_loop(stack, table, initial_model, params, work_dir=".",
                   maps_dir / f"{dataset}_match.mrc", pixel_size=pixel)
         logger.info("matching projections written to %s",
                     maps_dir / f"{dataset}_match.mrc")
+    parallel.barrier()
     return table, ref, history
 
 
@@ -784,6 +852,8 @@ def _model_fit(params, ref, pixel, it, entry, out_path, dev):
             extra_bfactor_a2=float(params.get("model_fit_bfactor") or 100.0),
             device=dev)
         entry["model_cc"] = round(fit["cc"], 4)
+        if not parallel.is_writer():
+            return
         with open(out_path, "a") as f:
             f.write(f"{it} {fit['cc']:.4f} "
                     f"{' '.join(str(int(s)) for s in fit['shift_px'])}\n")

@@ -449,3 +449,42 @@ class TestRecovery:
             meds[mode] = float(np.median(errs_to_truth(poses.numpy(), truth)))
         assert meds["gather"] <= meds["matmul"] + 5.5, meds
 
+
+
+def test_tf32_switch_holds_across_overlapping_threads():
+    """`_fp32_matmul` on two threads whose entries overlap (A enters, B
+    enters, A leaves while B is inside): TF32 stays off for every thread
+    inside, and the setting from before the first entry comes back after
+    the last exit."""
+    import threading
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    seen = []
+    a_in, b_in, a_out = (threading.Event() for _ in range(3))
+
+    def a():
+        with tf._fp32_matmul():
+            a_in.set()
+            b_in.wait(5)
+            seen.append(("a", torch.backends.cuda.matmul.allow_tf32))
+        a_out.set()
+
+    def b():
+        a_in.wait(5)
+        with tf._fp32_matmul():
+            b_in.set()
+            a_out.wait(5)
+            seen.append(("b", torch.backends.cuda.matmul.allow_tf32))
+
+    try:
+        threads = [threading.Thread(target=f) for f in (a, b)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(10)
+        assert sorted(seen) == [("a", False), ("b", False)]
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert tf._tf32_entries == 0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

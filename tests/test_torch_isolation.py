@@ -8,8 +8,8 @@ port's entry points default to the card, so they raise on a machine
 without one, and its host modes take `device` and do no device work. The
 preprocessing slice's copies (io.metadata, io.tiff, io.eer, io.dm,
 sched.graph, LocalExecutor, load_selection, Web.write_micrograph) are held
-to the JAX package's the same way, and the options that slice refuses
-raise by name. The streaming slice's copies (the STAR writer, io.relion,
+to the JAX package's the same way (the SLURM parameters it refused now
+route `spr` to the swarm scripts). The streaming slice's copies (the STAR writer, io.relion,
 io.relion_tomo, io.parfile, io.warp, io.eman, analysis.filters,
 stream.web, stream.params, stream.metadb, utils.notify and the pypio
 source) are the JAX package's files but for the package's name."""
@@ -92,6 +92,7 @@ def test_project_file_reads_back_in_the_other_package(writer, reader,
 
 def test_slurm_and_modes_agree(monkeypatch):
     assert tcli.MODES == jcli.MODES
+    assert set(tcli.PORTED) == set(tcli.MODES)
     params = tparams.parse_arguments(ARGV)
     for p in (params, tparams.parse_arguments([])):
         assert tcli.slurm_requested(p) == bridge.slurm_requested(p)
@@ -374,16 +375,23 @@ def test_load_selection_is_the_same(tmp_path):
         tload("absent", tmp_path, "ds")
 
 
-@pytest.mark.parametrize("flags,word", [
-    (["-slurm_queue", "gpu"], "SLURM"),
-    (["-slurm_submit"], "SLURM"),
+@pytest.mark.parametrize("flags,stage", [
+    pytest.param(["-slurm_queue", "gpu"], "spr", id="flags0-SLURM"),
+    pytest.param(["-slurm_submit"], "spr", id="flags1-SLURM"),
 ])
-def test_refused_preprocessing_options_raise_by_name(flags, word, tmp_path,
+def test_refused_preprocessing_options_raise_by_name(flags, stage, tmp_path,
                                                      monkeypatch):
+    """The SLURM parameters, refused until the SLURM slice, now route `spr`
+    to the swarm scripts (sbatch is absent here, so -slurm_submit leaves
+    them unsubmitted): the scripts are written, no bundle is."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("PYP_TPU_WORKER", raising=False)
     tmrc.write(np.zeros((2, 8, 8), np.float32), "m.mrc")
-    with pytest.raises(NotImplementedError, match=word):
-        tcli.main(["spr", "-data_path", "m.mrc"] + flags, device="cpu")
+    assert tcli.main(["spr", "-data_path", "m.mrc"] + flags,
+                     device="cpu") == 0
+    for name in (f"{stage}swarm.sbatch", f"{stage}swarm.swarm",
+                 f"{stage}merge.sbatch", f"{stage}_00000.json"):
+        assert (tmp_path / "swarm" / name).exists(), name
     assert not list(tmp_path.glob("*.meta.npz"))
 
 
@@ -416,13 +424,33 @@ def test_copied_modules_are_byte_identical(rel):
 
 
 @pytest.mark.parametrize("what", ["blocks", "geometry", "ctf", "artiax",
-                                  "trajectories_plot"])
+                                  "trajectories_plot", "slurm"])
 def test_partial_copies_behave_the_same(what, tmp_path):
     """The parts of JAX-free (or JAX-light) modules the CSP slice copies:
     the csp block overrides and mode schedule, the rotation about x and the
     patch regions, the frame damage weights, the ArtiaX star (the same
-    bytes) and the trajectory plot."""
-    if what == "blocks":
+    bytes) and the trajectory plot; and the SLURM slice's copies of
+    sched/executor.py's SLURM half and sched/bridge.py: the same source
+    but for the module the worker runs (the distributed script, which
+    places one rank per card, is held in test_torch_bridge.py)."""
+    if what == "slurm":
+        import inspect
+
+        from pyp_tpu.sched import executor as jexec
+        from pyp_tpu_torch.sched import bridge as tbridge
+        from pyp_tpu_torch.sched import executor as texec
+
+        def src(obj):
+            return inspect.getsource(obj).replace("pyp_tpu_torch.",
+                                                  "pyp_tpu.")
+        for name in ("get_total_seconds", "format_walltime",
+                     "scale_walltime", "SlurmExecutor"):
+            assert src(getattr(texec, name)) == src(getattr(jexec, name))
+        for name in ("strip_slurm_flags", "_is_bool_flag", "slurm_requested",
+                     "select_executor", "_payload", "worker_command",
+                     "submit_training", "submit_daemon", "submit_swarm"):
+            assert src(getattr(tbridge, name)) == src(getattr(bridge, name))
+    elif what == "blocks":
         from pyp_tpu.config import blocks as jb
         from pyp_tpu_torch.config import blocks as tb
 
@@ -580,7 +608,8 @@ ENTRY_POINTS = ["refine_loop", "refinement_iteration", "reconstruct",
                 "cli_tomotrain", "cli_mine", "cli_prism",
                 "cli_heterogeneity", "SessionDaemon", "SessionManager",
                 "run_workflow", "cli_stream", "cli_stream_sessions",
-                "cli_workflow"]
+                "cli_workflow", "make_mesh", "init_distributed",
+                "distributed_reconstruct", "cli_worker"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -595,6 +624,8 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     from pyp_tpu_torch.models import miner as tminer
     from pyp_tpu_torch.models import picker as tpick
     from pyp_tpu_torch.models import quality as tqual
+    from pyp_tpu_torch import parallel
+    from pyp_tpu_torch.parallel import multihost
     from pyp_tpu_torch.ops import (ab_initio, csp, ctf_fit, denoise_classic,
                                    extract, filament, frm, motion, pick,
                                    polish, reconstruct, refine2d, refine3d,
@@ -633,6 +664,8 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
                            ("num1", "den1", "num2", "den2")})
     tmrc.write(stack, "stack.mrc")
     tcistem.write_parameters(table, "stack.cistem")
+    (tmp_path / "spr.json").write_text(
+        '{"mode": "spr", "argv": ["-data_path", "m.mrc"]}')
     # the models' entry points, on empty weights: each raises before it
     # reads them
     pmodel = tpick.PickerModel({}, 16, 2.0)
@@ -807,6 +840,12 @@ def test_loop_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
         "cli_stream_sessions": lambda: tcli.main(
             ["stream", "-stream_sessions_dir", "sessions"]),
         "cli_workflow": lambda: tcli.main(["workflow", "wf.toml"]),
+        "make_mesh": lambda: parallel.make_mesh(),
+        "init_distributed": lambda: parallel.init_distributed(
+            "localhost:1", 1, 0),
+        "distributed_reconstruct": lambda: multihost.distributed_reconstruct(
+            stack, poses, cp, 2.0),
+        "cli_worker": lambda: tcli.main(["worker", "spr.json"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -830,7 +869,7 @@ def test_host_modes_take_device_and_do_no_device_work(mode, tmp_path,
 
     assert inspect.signature(tcli.PORTED[mode]).parameters[
         "device"].default == "cuda"
-    assert set(tcli.PORTED) == set(tcli.MODES) - {"worker"}
+    assert set(tcli.PORTED) == set(tcli.MODES)
     monkeypatch.chdir(tmp_path)
     (tmp_path / "none.star").write_text("data_\nloop_\n_rlnX #1\n1\n")
     tcistem.write_parameters(tcistem.Table.zeros(2), "stack.cistem")

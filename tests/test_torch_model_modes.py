@@ -225,7 +225,15 @@ def test_prism_mode(project, tmp_path):
     close(a["embeddings"], b["embeddings"], rel=1e-3)
 
 
-def test_training_modes_refuse_slurm_by_name(tmp_path):
+def test_training_modes_refuse_slurm_by_name(tmp_path, monkeypatch):
+    """With the SLURM parameters (refused until the SLURM slice) the
+    training modes write their one training job, as the JAX package's
+    do, and train nothing here."""
+    monkeypatch.delenv("PYP_TPU_WORKER", raising=False)
     for mode in ("sprtrain", "tomotrain"):
-        with pytest.raises(NotImplementedError, match=f"SLURM.*{mode}"):
-            run("port", [mode, "-slurm_queue", "gpu"], tmp_path)
+        rc, report = run("port", [mode, "-slurm_queue", "gpu"], tmp_path)
+        assert rc == 0 and report["n_items"] == 1
+        assert report["scripts"] == [f"swarm/{mode}.sbatch"]
+        assert "pyp_tpu_torch.cli worker" in (
+            tmp_path / "swarm" / f"{mode}.swarm").read_text()
+    assert not list(tmp_path.glob("picker_model*.npz"))

@@ -148,6 +148,27 @@ def test_average_scans(movie, dose_weighted):
     close(out2, ref2)
 
 
+@pytest.mark.parametrize("dose_weighted", [True, False])
+def test_average_scans_do_not_depend_on_the_chunk(movie, dose_weighted,
+                                                  monkeypatch):
+    """On a card the chunk follows the free memory, which other processes
+    on the card change: every chunk gives the same bits."""
+    frames, traj, _ = movie
+    shifts = torch.from_numpy(-traj)
+    doses = np.linspace(2.0, 30.0, len(frames)).astype(np.float32)
+    F = torch.fft.rfft2(torch.from_numpy(frames))
+    outs = []
+    for step in (len(frames), 5, 1):
+        monkeypatch.setattr(tm, "_fft_chunk", lambda *a, s=step: s)
+        outs.append((tm._average_scan(torch.from_numpy(frames), shifts,
+                                      doses, 1.5, dose_weighted),
+                     tm._average_spectra_scan(F, shifts, doses, 128, 128,
+                                              1.5, dose_weighted)))
+    for scan, spectra in outs[1:]:
+        assert torch.equal(scan, outs[0][0])
+        assert torch.equal(spectra, outs[0][1])
+
+
 def test_scan_average_normalization_differs_from_dose_weighted_average(movie):
     """The scan forms divide by sqrt(sum w²) floored at 1e-6;
     dose_weighted_average by the norm floored at 1e-8: equal where the

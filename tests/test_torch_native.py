@@ -1,11 +1,14 @@
-"""The port's host library: `csrc/pypio.cpp` built with g++ through
+"""The port's host code: `csrc/pypio.cpp` built with g++ through
 `ops/_build` into `pyp_tpu_torch/_build/` (never into the JAX package's
 native/pypio/), held to the Python LZW decoder and to `pyp_tpu.io.native`
 byte for byte, `copy_section` on both routes, and `io.tiff` reading an LZW
-movie through it, with the route that decoded counted."""
+movie through it, with the route that decoded counted; and the launcher
+`csrc/launcher.cpp`, built as an executable the same way and held to
+native/launcher/main.cpp as tests/test_native.py holds that one."""
 
 import shutil
 import struct
+import subprocess
 import sys
 from pathlib import Path
 
@@ -116,3 +119,62 @@ def test_tiff_lzw_movie_reads_through_both_routes(tmp_path):
     np.testing.assert_array_equal(native, np.stack(pages))
     np.testing.assert_array_equal(python, native)
     np.testing.assert_array_equal(jtiff.read(path), native)
+
+
+ALIASES = {"spr": "spr", "tomo": "tomo", "csp": "csp", "fyp": "refine",
+           "byp": "byp", "pcl": "clean", "pex": "export_session",
+           "ppp": "postprocess", "pmk": "mask", "psp": "postprocess",
+           "gyp": "gain", "rlp": "import_star", "rln": "export_star",
+           "wrp": "import_star", "sva": "sva", "3davg": "sva",
+           "streampyp": "stream"}
+
+
+def test_launcher_is_the_jax_packages_but_for_the_module(tmp_path):
+    """csrc/launcher.cpp, the twin of native/launcher/main.cpp: the same
+    source but for the module it execs and the name in its messages
+    (and the build line and a cited path of its header comment), built
+    with g++ into `_build/` (native/launcher/ untouched). Every alias, and
+    a mode given as the first argument, execs `python -m pyp_tpu_torch.cli
+    <mode> <args>`; here the python is a stub printing its argv."""
+    jax = (REPO / "native" / "launcher" / "main.cpp").read_text()
+    port = (REPO / "pyp_tpu_torch" / "csrc" / "launcher.cpp").read_text()
+    differ = [(a, b) for a, b in zip(jax.splitlines(), port.splitlines())
+              if a != b]
+    assert len(jax.splitlines()) == len(port.splitlines())
+    assert [b for _, b in differ] == [
+        "// pyp_tpu_torch launcher — host-side entry binary.",
+        "// (launcher/src/main.rs: read user config, wrap argv,",
+        "//   3. exec `python -m pyp_tpu_torch.cli <mode> <args...>` with "
+        "PYTHONPATH set.",
+        "// Build: pyp_tpu_torch.ops._build.build_executable(\"launcher\")  "
+        "->  _build/launcher-<hash>",
+        '    execv_args.push_back(const_cast<char*>("pyp_tpu_torch.cli"));',
+        '    std::cerr << "pyp_tpu_torch launcher: failed to exec " << python '
+        '<< ": "']
+    before = sorted(p.name for p in (REPO / "native" / "launcher").iterdir())
+    binary = _build.build_executable("launcher")
+    assert binary.parent == REPO / "pyp_tpu_torch" / "_build"
+    assert sorted(p.name for p in (REPO / "native" / "launcher").iterdir()) \
+        == before
+    stub = tmp_path / "python"
+    stub.write_text('#!/bin/sh\necho "$@"\n')
+    stub.chmod(0o755)
+    env = {"PATH": "/usr/bin:/bin", "HOME": str(tmp_path),
+           "PYP_TPU_PYTHON": str(stub)}
+    for alias, mode in ALIASES.items():
+        link = tmp_path / alias
+        link.symlink_to(binary)
+        out = subprocess.run([str(link), "-x", "1"], capture_output=True,
+                             text=True, env=env)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.split() == ["-m", "pyp_tpu_torch.cli", mode, "-x",
+                                      "1"]
+    out = subprocess.run([str(binary), "worker", "p.json"],
+                         capture_output=True, text=True, env=env)
+    assert out.stdout.split() == ["-m", "pyp_tpu_torch.cli", "worker",
+                                  "p.json"]
+    env["PYP_TPU_PYTHON"] = str(tmp_path / "absent")
+    out = subprocess.run([str(binary), "params"], capture_output=True,
+                         text=True, env=env)
+    assert out.returncode == 127
+    assert "pyp_tpu_torch launcher: failed to exec" in out.stderr

@@ -211,11 +211,11 @@ def test_cli_refine_and_unported(problem, tmp_path, monkeypatch):
 
     stack, table, start, _ = problem
     monkeypatch.chdir(tmp_path)
-    # a mode the port does not have exits 2 (worker, the last one; filter
-    # was the example here until the streaming slice ported it); spr,
-    # tomo, sva and csp are ported since the preprocessing, tomography and
-    # subtomogram slices and, with nothing to read, exit 1
-    assert cli.main(["worker"], device="cpu") == 2
+    # every mode of the JAX package is ported (worker, the last one, with
+    # the SLURM slice): a mode outside cli.MODES exits 2; spr, tomo, sva
+    # and csp, with nothing to read, exit 1
+    assert "nomode" not in cli.MODES
+    assert cli.main(["nomode"], device="cpu") == 2
     for mode in ("spr", "tomo", "sva", "csp"):
         assert cli.main([mode], device="cpu") == 1
     for engine in ("frm", "gather"):

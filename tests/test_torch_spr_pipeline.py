@@ -360,11 +360,14 @@ def test_cli_spr_extract_gain_match_jax(movie, tmp_path):
 def test_cli_refusals_and_empty_inputs(movie, tmp_path):
     jmrc.write(movie[:2], tmp_path / "mov.mrc")
     argv = ["spr", "-data_path", str(tmp_path / "mov.mrc")] + FLAGS
+    # the SLURM parameters (refused until the SLURM slice) write the swarm
+    # scripts, and no bundle is made here
     for extra, word in ((["-slurm_queue", "gpu"], "SLURM"),):
         work = tmp_path / word
         work.mkdir()
-        with pytest.raises(NotImplementedError, match=word):
-            _run_cli(tcli, argv + extra, work, device="cpu")
+        rc, report = _run_cli(tcli, argv + extra, work, device="cpu")
+        assert rc == 0 and report["n_items"] == 1
+        assert (work / "swarm" / "sprswarm.sbatch").exists()
         assert not list(work.glob("*.meta.npz"))
     work = tmp_path / "empty"
     work.mkdir()

@@ -294,7 +294,8 @@ def _cli(main, argv, cwd):
 
 def test_stream_mode_like_jax(tmp_path):
     """`stream` through both CLIs, bounded as test_cli_modes.py bounds it;
-    SLURM submission of the daemon is refused by name in the port."""
+    with the SLURM parameters the port writes the daemon's one job, as the
+    JAX package does (refused until the SLURM slice)."""
     argv = ["stream", "-data_path", "in/*.mrc", "-stream_max_iterations",
             "2", "-stream_poll_interval", "0.01", "-scope_pixel", "1.0",
             "-ctf_tile", "64", "-detect_rad", "6", "-detect_max", "8",
@@ -311,9 +312,16 @@ def test_stream_mode_like_jax(tmp_path):
                                              "classified": False})
     assert TDB(str(tmp_path / "port" / "db.json")).count_micrographs(
         "group", "session") == 2
-    with pytest.raises(NotImplementedError, match="SLURM"):
-        _cli(lambda a: tcli.main(a, device="cpu"),
-             argv + ["-slurm_queue", "gpu"], tmp_path / "port")
+    here = os.getcwd()
+    os.chdir(tmp_path / "port")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert tcli.main(argv + ["-slurm_queue", "gpu"],
+                             device="cpu") == 0
+    finally:
+        os.chdir(here)
+    daemon_job = (tmp_path / "port" / "swarm" / "streamdaemon.swarm")
+    assert "-m pyp_tpu_torch.cli worker" in daemon_job.read_text()
 
 
 def test_classes_pushed_without_a_montage(tmp_path, monkeypatch):

@@ -292,10 +292,15 @@ def test_cli_tomo_mode(sidecar, tmp_path, monkeypatch):
 ])
 def test_refused_tomography_options_raise_by_name(flags, word, tmp_path,
                                                   monkeypatch):
+    """The SLURM parameters, refused until the SLURM slice, now write the
+    tomo swarm's scripts (`word` names the route): no series is processed
+    here."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("PYP_TPU_WORKER", raising=False)
     mrc.write(np.zeros((3, 64, 64), np.float32), "ts.mrc")
-    with pytest.raises(NotImplementedError, match=word):
-        tcli.main(["tomo", "-data_path", "ts.mrc"] + flags, device="cpu")
+    assert tcli.main(["tomo", "-data_path", "ts.mrc"] + flags,
+                     device="cpu") == 0
+    assert word == "SLURM" and (tmp_path / "swarm" / "tomoswarm.sbatch").exists()
     assert not list(tmp_path.glob("*.meta.npz"))
     assert not list(tmp_path.glob("*.rec.mrc"))
 

@@ -40,6 +40,7 @@ from pyp_tpu_torch.ops.fourier_slice import (
     image_to_fourier,
 )
 from pyp_tpu_torch.ops.refine3d import _ctf_at_points, make_mask_points
+from pyp_tpu_torch.utils.timer import span
 
 
 class CspParams(NamedTuple):
@@ -139,6 +140,7 @@ def gather_2d_hermitian_batched(F, pts):
     return gather_2d_hermitian(F, pts)
 
 
+@span("csp.gather")
 def _csp_model_gather(params, mask_pts, Fref, n):
     """Reference central-slice values (..., T, P, G) at the mask points for
     the current geometry angles — the only gather in the scoring path."""
@@ -357,12 +359,16 @@ def _refine_mode_xv(
     tolerance, its later steps do not move it (same trip count). 0 = off.
     Returns (params, score per series)."""
     blocks = MODE_BLOCKS[mode]
-    with torch.no_grad():
+    lead_shape = params.tilt_angles.shape[:-1]
+    with span("csp.mode.start"), torch.no_grad():
         u0 = (_csp_model_gather(params, mask_pts, Fref, n)
               if mode in SHIFT_MODES else None)
         c0 = (_csp_ctf(params, tilt_defocus, mask_pts, n, pixel_size,
                        voltage_kv, cs_mm, amplitude_contrast)
               if mode in CTF_CONST_MODES else None)
+        m = {k: torch.zeros_like(getattr(params, k)) for k in blocks}
+        done = torch.zeros(lead_shape, device=xv.device)
+        prev = torch.full(lead_shape, -math.inf, device=xv.device)
 
     def loss_fn(p):
         score = csp_score(
@@ -377,43 +383,47 @@ def _refine_mode_xv(
         leaves = {k: getattr(p, k).detach().requires_grad_(True)
                   for k in blocks}
         with torch.enable_grad():
-            loss = loss_fn(p._replace(**leaves))
-            g = torch.autograd.grad(loss.sum(), [leaves[k] for k in blocks])
+            with span("csp.step.forward"):
+                loss = loss_fn(p._replace(**leaves))
+                total = loss.sum()
+            with span("csp.step.backward"):
+                g = torch.autograd.grad(total, [leaves[k] for k in blocks])
         return loss.detach(), dict(zip(blocks, g))
 
     use_tols = step_tol > 0.0 or value_tol > 0.0
     scales = dict(zip(CspParams._fields, STEP_SCALES))
     p = params
-    m = {k: torch.zeros_like(getattr(params, k)) for k in blocks}
-    lead_shape = params.tilt_angles.shape[:-1]
-    done = torch.zeros(lead_shape, device=xv.device)
-    prev = torch.full(lead_shape, -math.inf, device=xv.device)
     for t in range(iters):
-        loss, g = value_and_grad(p)
-        # one gradient norm per series over the mode's blocks
-        gsq = sum(torch.sum(gi * gi, tuple(range(len(lead_shape), gi.dim())))
-                  for gi in g.values())
-        gnorm = torch.sqrt(gsq + 1e-12)
-        decay = 0.5 * (1 + math.cos(math.pi * t / iters))
-        gate = 1.0 - done
-        upd = {}
-        for k in blocks:
-            m[k] = 0.7 * m[k] + g[k] / _per_series(gnorm, g[k])
-            upd[k] = _per_series(gate, m[k]) * (lr * decay * scales[k]) * m[k]
-        p = p._replace(**{k: getattr(p, k) + upd[k] for k in blocks})
-        if use_tols:
-            usq = sum(torch.sum(ui * ui, tuple(range(len(lead_shape), ui.dim())))
-                      for ui in upd.values())
-            unorm = torch.sqrt(usq + 1e-18)
-            stalled = torch.zeros_like(done, dtype=torch.bool)
-            if t > 0:
-                if value_tol > 0.0:
-                    stalled = stalled | (loss - prev < value_tol)
-                if step_tol > 0.0:
-                    stalled = stalled | (unorm < step_tol)
-            done = torch.maximum(done, stalled.to(done.dtype))
-            prev = loss
-    with torch.no_grad():
+        with span("csp.step"):
+            loss, g = value_and_grad(p)
+            with span("csp.step.update"):
+                # one gradient norm per series over the mode's blocks
+                gsq = sum(torch.sum(gi * gi,
+                                    tuple(range(len(lead_shape), gi.dim())))
+                          for gi in g.values())
+                gnorm = torch.sqrt(gsq + 1e-12)
+                decay = 0.5 * (1 + math.cos(math.pi * t / iters))
+                gate = 1.0 - done
+                upd = {}
+                for k in blocks:
+                    m[k] = 0.7 * m[k] + g[k] / _per_series(gnorm, g[k])
+                    upd[k] = (_per_series(gate, m[k])
+                              * (lr * decay * scales[k]) * m[k])
+                p = p._replace(**{k: getattr(p, k) + upd[k] for k in blocks})
+                if use_tols:
+                    usq = sum(torch.sum(ui * ui,
+                                        tuple(range(len(lead_shape), ui.dim())))
+                              for ui in upd.values())
+                    unorm = torch.sqrt(usq + 1e-18)
+                    stalled = torch.zeros_like(done, dtype=torch.bool)
+                    if t > 0:
+                        if value_tol > 0.0:
+                            stalled = stalled | (loss - prev < value_tol)
+                        if step_tol > 0.0:
+                            stalled = stalled | (unorm < step_tol)
+                    done = torch.maximum(done, stalled.to(done.dtype))
+                    prev = loss
+    with span("csp.mode.keep"), torch.no_grad():
         s0 = loss_fn(params)
         s1 = loss_fn(p)
         better = s1 >= s0
@@ -472,21 +482,22 @@ def _schedule_core(
     scores = []
     for i, mode in enumerate(modes):
         off = offsets_by_mode[i] if offsets_by_mode is not None else None
-        if off is not None:
-            params, _ = _grid_search_xv(
+        with span("csp.mode", {"mode": mode}):
+            if off is not None:
+                params, _ = _grid_search_xv(
+                    params, xv, window_centers, tilt_defocus, mask_pts, Fref,
+                    tilt_weights, valid, off, mode, n, pixel_size,
+                    voltage_kv, cs_mm, amplitude_contrast)
+            params, s = _refine_mode_xv(
                 params, xv, window_centers, tilt_defocus, mask_pts, Fref,
-                tilt_weights, valid, off, mode, n, pixel_size,
-                voltage_kv, cs_mm, amplitude_contrast)
-        params, s = _refine_mode_xv(
-            params, xv, window_centers, tilt_defocus, mask_pts, Fref,
-            tilt_weights, valid, mode, n, pixel_size, iters_per_mode, lr,
-            reg_weight, voltage_kv, cs_mm, amplitude_contrast,
-            step_tol=step_tol, value_tol=value_tol)
+                tilt_weights, valid, mode, n, pixel_size, iters_per_mode, lr,
+                reg_weight, voltage_kv, cs_mm, amplitude_contrast,
+                step_tol=step_tol, value_tol=value_tol)
         scores.append(s)
     lead = params.tilt_angles.shape[:-1]
     mode_scores = (torch.stack(scores, -1) if scores
                    else torch.zeros(lead + (0,), device=xv.device))
-    with torch.no_grad():
+    with span("csp.scores"), torch.no_grad():
         # final per-particle CTF-weighted NCC (the SCORE column)
         ncc = _csp_ncc(params, xv, window_centers, tilt_defocus, mask_pts,
                        Fref, n, pixel_size, voltage_kv, cs_mm,
@@ -536,6 +547,7 @@ def _csp_refine_batch_chunk(params_b, xv_b, window_centers_b, tilt_defocus_b,
             torch.stack([o[2] for o in outs]))
 
 
+@span("csp.refine_batch")
 def csp_refine_batch(
     params_b: CspParams, xv_b, window_centers_b, tilt_defocus_b, mask_pts,
     Fref, tilt_weights_b, valid_b, offsets_by_mode, spin_offsets,

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pyp_tpu_torch.utils.timer import span
+
 DEFAULT_PAD = 2
 
 
@@ -273,6 +275,7 @@ def _corner_lists(qs, vals, c2, q0, frac, in_sphere, pn, nxf):
             torch.cat(wc2))
 
 
+@span("insert.scatter")
 def _scatter(q, vals, c2, pn: int, nxf: int, n_sets: int, set_id):
     """Trilinear scatter of (vals, c2) at padded coords q into n_sets
     stacked (pn, pn, nxf) accumulator pairs; set_id (B,) picks each

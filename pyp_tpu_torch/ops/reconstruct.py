@@ -36,6 +36,7 @@ from pyp_tpu_torch.ops.fourier_slice import (
     volume_to_fourier,
 )
 from pyp_tpu_torch.ops.refine3d import _ctf_at_points
+from pyp_tpu_torch.utils.timer import span
 
 
 class Accumulators(NamedTuple):
@@ -178,6 +179,7 @@ def accumulate(
     return prev
 
 
+@span("reconstruct.accumulate_matrices")
 def accumulate_matrices(
     windows,             # (B, n, n) particle projections (e.g. CSP windows)
     rotations,           # (B, 3, 3) full projection rotations (R_eff)

@@ -114,7 +114,12 @@ and the subtomogram phases:
              plain and with the grid search, series sequential and
              vectorized: projections/s, peak memory, a step's split, and
              accumulate_matrices of the 41,984 rows (no quality bar);
-  csp_tomo   `tools/e2e_tomo.CSP_SERIES` (the tomo field with a particle
+  csp_gather  the CSP model gather's kernel (csp_slice_gather) at that
+             shape against its plain version: forward max abs error <=
+             1e-5 x max|u| with the same zeros, backward relative L2 <=
+             1e-4 for mode 0's and mode 1's blocks; kernel, plain and
+             bound times; 47 forward and 40 backward launches a unit;
+  csp_tomo  `tools/e2e_tomo.CSP_SERIES` (the tomo field with a particle
              whose projections change with its orientation) through `tomo`,
              picked by template matching with the particle map;
   csp        `csp` on copies of that project, started from `tools/e2e_csp`
@@ -260,8 +265,8 @@ def phase_device():
 
 
 def phase_build():
-    """Both libraries from the checkout's sources, started together: the
-    CUDA kernel (nvcc) and the host library pypio (g++), which the TIFF
+    """The libraries from the checkout's sources, started together: the
+    CUDA kernels (nvcc) and the host library pypio (g++), which the TIFF
     reader hands its LZW strips."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -274,11 +279,13 @@ def phase_build():
         return name, os.path.relpath(path, ROOT), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(build, ("shift_scored_match", "pypio")))
+    with ThreadPoolExecutor(3) as pool:
+        built = list(pool.map(build, ("shift_scored_match", "pypio",
+                                      "csp_slice_gather")))
     emit({"phase": "build", "kernel": "shift_scored_match",
           "library": built[0][1], "kernel_seconds": built[0][2],
           "host_library": built[1][1], "host_library_seconds": built[1][2],
+          "gather_library": built[2][1], "gather_seconds": built[2][2],
           "seconds": time.perf_counter() - t0})
 
 
@@ -2934,6 +2941,106 @@ def phase_csp_layers():
     return row["launches"]
 
 
+def phase_csp_gather():
+    """The CSP model gather's kernel (ops.kernels.csp_slice_gather) at
+    csp_layers' shape (8 x 41 x 128 rows x the band's mask points, Fref
+    128^3 at box 64) against its plain version: forward max abs error,
+    its share of bit-equal values and whether the zeros agree; the
+    backward's relative L2 against autograd through the plain version for
+    mode 0's and mode 1's blocks; medians of 11 CUDA-event launches of the
+    forward and backward kernels beside the plain ones and the bytes
+    bound; and the launches of one unit of the schedule (modes 3:0:2:1 x
+    20, vectorized: 47 forward, 40 backward)."""
+    import torch
+
+    from pyp_tpu_torch.ops import csp, kernels
+
+    c = CSP_LAYERS
+    n = c["box"]
+    args, gen = _csp_layers_inputs()
+    params, xv, wc, df, mask, Fref, tw, valid = args
+    scale = float(Fref.shape[0] // n)
+    R = csp.effective_rotations(params)
+    rows, G = R[..., 0, 0].numel(), int(mask.shape[0])
+    row = {"phase": "csp_gather", "rows": rows, "G": G,
+           "fref": list(Fref.shape)}
+    with torch.no_grad():
+        u = csp._csp_model_gather(params, mask, Fref, n)
+        u0 = kernels.csp_slice_gather_plain(R, mask, Fref, scale)
+    torch.cuda.synchronize()
+    row.update(max_abs_u=float(u0.abs().max()),
+               max_abs_err=float((u - u0).abs().max()),
+               bit_equal_share=float(((u.real == u0.real)
+                                      & (u.imag == u0.imag)).float().mean()),
+               zeros_agree=bool(torch.equal(u == 0, u0 == 0)))
+    del u, u0
+    W = torch.complex(*(torch.randn(R.shape[:-2] + (G,), generator=gen,
+                                    device=R.device) for _ in range(2)))
+    for mode, blocks in ((0, ("tilt_angles", "axis_angles")),
+                         (1, ("particle_eulers",))):
+        grads = []
+        for fn in (lambda p: csp._csp_model_gather(p, mask, Fref, n),
+                   lambda p: kernels.csp_slice_gather_plain(
+                       csp.effective_rotations(p), mask, Fref, scale)):
+            leaves = {k: getattr(params, k).detach().requires_grad_(True)
+                      for k in blocks}
+            uu = fn(params._replace(**leaves))
+            grads.append(torch.autograd.grad(
+                uu, list(leaves.values()), W))
+            del uu
+        row[f"backward_rel_l2_mode{mode}"] = max(
+            float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in zip(*grads))
+    # kernel and plain times on fixed rotations (rows, 3, 3); gather_ms is
+    # the whole call, effective_rotations included
+    Rr = R.reshape(-1, 3, 3).detach().requires_grad_(True)
+    Wf = W.reshape(rows, G)
+    with torch.no_grad():
+        row["kernel_ms"] = _median_ms(
+            lambda: kernels.csp_slice_gather(Rr, mask, Fref, scale))
+        row["gather_ms"] = _median_ms(
+            lambda: csp._csp_model_gather(params, mask, Fref, n))
+        row["plain_ms"] = _median_ms(
+            lambda: kernels.csp_slice_gather_plain(Rr, mask, Fref, scale),
+            reps=5)
+    uk = kernels.csp_slice_gather(Rr, mask, Fref, scale)
+    row["backward_kernel_ms"] = _median_ms(
+        lambda: torch.autograd.grad(uk, Rr, Wf, retain_graph=True))
+    del uk
+    up = kernels.csp_slice_gather_plain(Rr, mask, Fref, scale)
+    row["backward_plain_ms"] = _median_ms(
+        lambda: torch.autograd.grad(up, Rr, Wf, retain_graph=True), reps=5)
+    del up
+    # the roofline's bytes: the output written once, Fref, the points and
+    # the parameters read once (portbench/counts/csp_gather.py)
+    nbytes = (8 * rows * G + 8 * Fref.numel() + 4 * mask.numel()
+              + sum(4 * x.numel() for x in params))
+    row["bound_ms"] = 1e3 * nbytes / HBM_BYTES_S
+    row["kernel_share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    # the launches of one unit of the schedule
+    offs, spin = csp.build_mode_offsets(c["modes"], None, 9)
+    f0 = kernels.csp_slice_gather.launches
+    b0 = kernels.csp_slice_gather.backward_launches
+    csp.csp_refine_batch(*args, offs, spin, c["modes"], n, c["pixel"],
+                         iters_per_mode=c["iters"], series_vmap=True)
+    torch.cuda.synchronize()
+    row["unit_launches"] = kernels.csp_slice_gather.launches - f0
+    row["unit_backward_launches"] = (kernels.csp_slice_gather.backward_launches
+                                     - b0)
+    row["ok"] = (row["max_abs_err"] <= 1e-5 * row["max_abs_u"]
+                 and row["zeros_agree"]
+                 and row["backward_rel_l2_mode0"] <= 1e-4
+                 and row["backward_rel_l2_mode1"] <= 1e-4
+                 and (row["unit_launches"], row["unit_backward_launches"])
+                 == (47, 40))
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"csp_slice_gather disagrees with its plain "
+                           f"version or launched other than 47 / 40 a unit: "
+                           f"{row}")
+    return row
+
+
 def _matched_picks(base, truth, thickness):
     """The tomo project's picks as the csp mode centres them (unbinned
     px), and one per planted particle (tools/e2e_csp.matched_picks):
@@ -3832,6 +3939,7 @@ def main():
     het = phase_heterogeneity()
     preprocess = phase_preprocess(volume)
     csp_layers = phase_csp_layers()
+    gather = phase_csp_gather()
     tomo_launches = phase_tomography()
     het += tomo_launches.pop("heterogeneity_tilt")
     print(smi, flush=True)
@@ -3847,7 +3955,16 @@ def main():
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "operations", "library_ms": k["library_ms"],
-        "bound_fp32_ms": k["bound_fp32_ms"], "tflops": k["tflops"]}]})
+        "bound_fp32_ms": k["bound_fp32_ms"], "tflops": k["tflops"]}, {
+        "name": "csp_slice_gather", "route": "cuda",
+        "source": "pyp_tpu_torch/csrc/csp_slice_gather.cu",
+        "replaces": None,
+        "launches": {"csp_unit": [gather["unit_launches"],
+                                  gather["unit_backward_launches"]]},
+        "max_abs_err": gather["max_abs_err"], "ms": gather["kernel_ms"],
+        "backward_ms": gather["backward_kernel_ms"],
+        "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
+        "bound_by": "bytes"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -36,9 +36,9 @@ from pyp_tpu_torch import as_f32, resolve_device, rows_per_call
 from pyp_tpu_torch.core.geometry import euler_to_matrix, rot_y, rot_z
 from pyp_tpu_torch.ops.fourier_slice import (
     gather_2d_hermitian,
-    gather_3d_hermitian,
     image_to_fourier,
 )
+from pyp_tpu_torch.ops.kernels import csp_slice_gather
 from pyp_tpu_torch.ops.refine3d import _ctf_at_points, make_mask_points
 from pyp_tpu_torch.utils.timer import span
 
@@ -143,12 +143,13 @@ def gather_2d_hermitian_batched(F, pts):
 @span("csp.gather")
 def _csp_model_gather(params, mask_pts, Fref, n):
     """Reference central-slice values (..., T, P, G) at the mask points for
-    the current geometry angles — the only gather in the scoring path."""
+    the current geometry angles — the only gather in the scoring path. On
+    the card one kernel forward and one backward (`ops.kernels.
+    csp_slice_gather`); on the CPU the elementwise chain through
+    gather_3d_hermitian."""
     vol_pad = Fref.shape[0] // n
     R_eff = effective_rotations(params)                  # (..., T, P, 3, 3)
-    q = (mask_pts[:, 1, None] * R_eff[..., None, 0, :]
-         + mask_pts[:, 0, None] * R_eff[..., None, 1, :])  # (..., T, P, G, 3)
-    return gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))
+    return csp_slice_gather(R_eff, mask_pts, Fref, float(vol_pad))
 
 
 def _csp_ctf(params, tilt_defocus, mask_pts, n, pixel_size,

@@ -85,8 +85,10 @@ def volume_to_fourier(vol, pad: int = DEFAULT_PAD):
     """Centered, `pad`-times oversampled 3D spectrum of a cubic volume."""
     v = pad_volume(vol.to(torch.float32), pad)
     n = v.shape[-1]
+    # contiguous: the card's rfftn returns another stride order, which
+    # every flat gather of the spectrum would otherwise copy
     return (torch.fft.rfftn(v, dim=(-3, -2, -1))
-            * _freq_checkerboard_3d(n, v.device))
+            * _freq_checkerboard_3d(n, v.device)).contiguous()
 
 
 def fourier_to_volume(F, n: int, pad: int = 1):

@@ -13,6 +13,14 @@ with K = 2G, each operand split into TF32 hi and lo parts, cut into tile
 images) and launches it (built by `_build` at first use) or raises; on a
 CPU tensor it runs `shift_scored_match_plain`, the loop over shifts the
 kernel replaces, which is also the kernel's test oracle.
+
+`csp_slice_gather`: the CSP model gather (`ops.csp._csp_model_gather`),
+the trilinear, Friedel-aware values of a padded reference spectrum at
+every mask point of every rotated central slice, as one kernel forward
+and one backward (`csrc/csp_slice_gather.cu`) behind a
+`torch.autograd.Function`; on a CPU tensor, `csp_slice_gather_plain`,
+the elementwise chain through `fourier_slice.gather_3d_hermitian` that
+the kernel replaces (and autograd through it).
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from pyp_tpu_torch.ops.fourier_slice import gather_3d_hermitian
+from pyp_tpu_torch.utils.timer import span
 
 
 def shift_scored_match_plain(v, u, E, ninv):
@@ -197,3 +208,156 @@ def launch_kernel(operands, ninv, S):
 
 
 shift_scored_match.launches = 0
+
+
+def csp_slice_gather_plain(R, mask_pts, Fref, scale):
+    """Plain PyTorch version: R (..., 3, 3) rotations, mask_pts (G, 2) (ky,
+    kx), Fref (m, m, m//2+1) complex -> (..., G) complex, the values of Fref
+    at the slice points q = kx R[0] + ky R[1], read (qz, qy, qx), times
+    `scale` (gather_3d_hermitian's rules)."""
+    q = (mask_pts[:, 1, None] * R[..., None, 0, :]
+         + mask_pts[:, 0, None] * R[..., None, 1, :])       # (..., G, 3)
+    return gather_3d_hermitian(Fref, q.flip(-1), scale=scale)
+
+
+def csp_slice_gather_grad_plain(R, mask_pts, Fref, scale, grad):
+    """Plain PyTorch version of the backward kernel: the gradient (rows, 3,
+    3) with respect to R (rows, 3, 3) of Re(sum conj(grad) * u) for u =
+    csp_slice_gather_plain and grad (rows, G) complex, through the
+    trilinear weights' derivatives, the flip's sign and the scale (the
+    kernel's arithmetic, summed over G; the third row is 0)."""
+    m, nxf = Fref.shape[0], Fref.shape[2]
+    flat = Fref.reshape(-1)
+    q = scale * (mask_pts[:, 1, None] * R[:, None, 0, :]
+                 + mask_pts[:, 0, None] * R[:, None, 1, :]).flip(-1)
+    flip = q[..., 2] < 0
+    sign = 1.0 - 2.0 * flip.to(q.dtype)
+    qs = q * sign[..., None]
+    k0 = torch.floor(qs)
+    frac = qs - k0
+    k0 = k0.to(torch.int64)
+    dv = torch.zeros(q.shape, dtype=Fref.dtype, device=q.device)
+    for c in range(8):
+        d = (c >> 2, (c >> 1) & 1, c & 1)
+        kz, ky, kx = (k0[..., i] + d[i] for i in range(3))
+        v = flat[((kz % m) * m + ky % m) * nxf + kx.clamp(0, nxf - 1)]
+        v = v * (kx <= nxf - 1)
+        w = [frac[..., i] if d[i] else 1 - frac[..., i] for i in range(3)]
+        for i in range(3):
+            a = (1.0 if d[i] else -1.0) * w[(i + 1) % 3] * w[(i + 2) % 3]
+            dv[..., i] += a * v
+    g = torch.where(flip, grad.conj(), grad)[..., None]
+    inside = torch.sum(q * q, -1) <= (m // 2) ** 2
+    dq = (g.real * dv.real + g.imag * dv.imag) * (scale * sign
+                                                  * inside)[..., None]
+    dq = dq.flip(-1)                                        # (rows, G, 3) xyz
+    return torch.stack([torch.einsum("rgc,g->rc", dq, mask_pts[:, 1]),
+                        torch.einsum("rgc,g->rc", dq, mask_pts[:, 0]),
+                        torch.zeros_like(dq[:, 0])], 1)
+
+
+def _slice_launchers():
+    from pyp_tpu_torch.ops import _build
+
+    lib = _build.load("csp_slice_gather")
+    fwd, bwd = lib.csp_slice_gather_forward, lib.csp_slice_gather_backward
+    if fwd.argtypes is None:
+        args = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+        fwd.argtypes = bwd.argtypes = args
+        fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+class _SliceGather(torch.autograd.Function):
+    """The kernel forward on R (rows, 3, 3), and the backward kernel for R's
+    gradient. The forward lays each (y, x) corner quad of Fref side by side
+    in Fq (m, m, nxf, 4), which the backward reads again; the corners are
+    recomputed."""
+
+    @staticmethod
+    def forward(ctx, R, mask_pts, Fref, scale):
+        rows, G = R.shape[0], mask_pts.shape[0]
+        m, nxf = Fref.shape[0], Fref.shape[2]
+        Fq = torch.empty((m, m, nxf, 4), dtype=torch.complex64,
+                         device=R.device)
+        out = torch.empty((rows, G), dtype=torch.complex64, device=R.device)
+        err = _slice_launchers()[0](
+            R.data_ptr(), mask_pts.data_ptr(), Fref.data_ptr(),
+            Fq.data_ptr(), out.data_ptr(), rows, G, m, nxf, scale,
+            torch.cuda.current_stream(R.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"csp_slice_gather forward launch failed: "
+                               f"CUDA error {err}")
+        csp_slice_gather.launches += 1
+        ctx.save_for_backward(R, mask_pts, Fq)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        with span("csp.gather.backward"):
+            R, mask_pts, Fq = ctx.saved_tensors
+            if grad.dtype != torch.complex64:
+                raise TypeError(f"csp_slice_gather: the output's gradient "
+                                f"is {grad.dtype}, expected complex64")
+            grad = grad.contiguous()
+            dR = torch.empty_like(R)
+            err = _slice_launchers()[1](
+                R.data_ptr(), mask_pts.data_ptr(), Fq.data_ptr(),
+                grad.data_ptr(), dR.data_ptr(), R.shape[0], mask_pts.shape[0],
+                Fq.shape[0], Fq.shape[2], ctx.scale,
+                torch.cuda.current_stream(R.device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"csp_slice_gather backward launch "
+                                   f"failed: CUDA error {err}")
+            csp_slice_gather.backward_launches += 1
+            return dR, None, None, None
+
+
+def csp_slice_gather(R, mask_pts, Fref, scale):
+    """R (..., 3, 3) float32 rotations, mask_pts (G, 2) float32 (ky, kx),
+    Fref (m, m, m//2+1) complex64, all on one device -> (..., G) complex64:
+    csp_slice_gather_plain's values, differentiable with respect to R. CUDA
+    tensors launch the kernel forward (counted in
+    `csp_slice_gather.launches`) and, for R's gradient, the backward kernel
+    (`csp_slice_gather.backward_launches`); CPU tensors take the plain
+    version and autograd through it. The kernel takes only R's gradient:
+    mask points or an Fref that require grad are refused."""
+    if mask_pts.device != R.device or Fref.device != R.device:
+        raise ValueError("csp_slice_gather: inputs on different devices")
+    if R.device.type == "cpu":
+        return csp_slice_gather_plain(R, mask_pts, Fref, scale)
+    if R.device.type != "cuda":
+        raise ValueError(f"csp_slice_gather: no kernel for {R.device}")
+    for name, t, dt in (("R", R, torch.float32),
+                        ("mask_pts", mask_pts, torch.float32),
+                        ("Fref", Fref, torch.complex64)):
+        if t.dtype != dt:
+            raise TypeError(f"csp_slice_gather: {name} is {t.dtype}, "
+                            f"expected {dt}")
+    m = Fref.shape[0]
+    if (tuple(R.shape[-2:]) != (3, 3) or mask_pts.dim() != 2
+            or mask_pts.shape[1] != 2 or Fref.dim() != 3
+            or tuple(Fref.shape) != (m, m, m // 2 + 1)):
+        raise ValueError(
+            f"csp_slice_gather: shapes R {tuple(R.shape)}, mask_pts "
+            f"{tuple(mask_pts.shape)}, Fref {tuple(Fref.shape)}; expected "
+            "(..., 3, 3), (G, 2), (m, m, m//2+1)")
+    for name, t in (("mask_pts", mask_pts), ("Fref", Fref)):
+        if not t.is_contiguous() or t.data_ptr() % 8:
+            raise ValueError(f"csp_slice_gather: {name} must be contiguous "
+                             "and 8-byte aligned")
+        if t.requires_grad:
+            raise ValueError(f"csp_slice_gather: {name} requires grad; the "
+                             "kernel gives R's gradient only")
+    lead, G = R.shape[:-2], mask_pts.shape[0]
+    R3 = R.reshape(-1, 3, 3).contiguous()
+    with torch.cuda.device(R.device):
+        out = _SliceGather.apply(R3, mask_pts, Fref, float(scale))
+    return out.view(lead + (G,))
+
+
+csp_slice_gather.launches = 0
+csp_slice_gather.backward_launches = 0

@@ -112,13 +112,22 @@ and the subtomogram phases:
              series x 41 tilts x 128 particles, box 64 at 2 Å/px, the
              60-8 Å band, modes 3:0:2:1 x 20 steps) on windows of noise,
              plain and with the grid search, series sequential and
-             vectorized: projections/s, peak memory, a step's split, and
+             vectorized: the first call's s (it captures the mode
+             graphs), projections/s of the next, peak memory, a step's
+             split, and
              accumulate_matrices of the 41,984 rows (no quality bar);
   csp_gather  the CSP model gather's kernel (csp_slice_gather) at that
              shape against its plain version: forward max abs error <=
              1e-5 x max|u| with the same zeros, backward relative L2 <=
              1e-4 for mode 0's and mode 1's blocks; kernel, plain and
              bound times; 47 forward and 40 backward launches a unit;
+  csp_graph  the CSP step loops as CUDA graphs (ops.csp.ModeGraphs) at
+             that shape, each mode of 3:0:2:1: capture and replays, one
+             with other inputs, equal bit for bit to the eager step
+             function, and csp_refine_batch with the graphs equal to the
+             same schedule with eager steps; eager, first-call and replay
+             ms, a replay's gather launches, counted and as the profiler
+             sees them run;
   csp_tomo  `tools/e2e_tomo.CSP_SERIES` (the tomo field with a particle
              whose projections change with its orientation) through `tomo`,
              picked by template matching with the particle map;
@@ -2865,7 +2874,9 @@ def phase_csp_layers():
     """The CSP refinement alone at the reference bench's shape on windows of
     noise (no quality bar): the mode schedule plain and with the grid
     search, each with the series one after another and vectorized;
-    projections per second (S*T*P / wall), peak memory, one step's split
+    the first call's wall (it captures the mode graphs at its shape) and
+    projections per second of the next (S*T*P / wall), peak memory, one
+    step's split
     into the reference gather, the NCC and the autograd backward; and
     accumulate_matrices of all S*T*P rows."""
     import torch
@@ -2890,12 +2901,15 @@ def phase_csp_layers():
         for vmap in (False, True):
             key = f"{label}_{'vectorized' if vmap else 'sequential'}"
             torch.cuda.reset_peak_memory_stats()
-            out, wall = _sync_s(lambda: csp.csp_refine_batch(
-                *args, offs, spin, c["modes"], n, pixel,
-                iters_per_mode=c["iters"], series_vmap=vmap))
+            # the first call at a shape captures its mode graphs; the
+            # second replays them, as every later call does
+            for when in ("first_", ""):
+                out, wall = _sync_s(lambda: csp.csp_refine_batch(
+                    *args, offs, spin, c["modes"], n, pixel,
+                    iters_per_mode=c["iters"], series_vmap=vmap))
+                row[f"{key}_{when}s"] = wall
             if not all(torch.isfinite(x).all() for x in out[0]):
                 raise RuntimeError(f"csp_layers {key}: non-finite parameters")
-            row[f"{key}_s"] = wall
             row[f"{key}_projections_per_s"] = S * T * P / wall
             row[f"{key}_max_memory_allocated_GiB"] = (
                 torch.cuda.max_memory_allocated() / 2**30)
@@ -3038,6 +3052,149 @@ def phase_csp_gather():
         raise RuntimeError(f"csp_slice_gather disagrees with its plain "
                            f"version or launched other than 47 / 40 a unit: "
                            f"{row}")
+    return row
+
+
+class _EagerSteps:
+    """Stands in for ops.csp.graph: each mode's steps run eagerly."""
+
+    def run(self, h, b):
+        from pyp_tpu_torch.ops import csp
+
+        return csp._eager_steps(b, h)
+
+
+def _differ(a, b):
+    """(share of values that differ, largest absolute difference) of two
+    lists of tensors."""
+    n = sum(x.numel() for x in a)
+    neq = sum(int((x != y).sum()) for x, y in zip(a, b))
+    return neq / n, max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def _within(d, bound):
+    """Whether the (share, largest difference) d is no wider than bound's
+    in both."""
+    return d[0] <= bound[0] and d[1] <= bound[1]
+
+
+def phase_csp_graph():
+    """The CSP step loops as CUDA graphs (ops.csp.ModeGraphs) at
+    csp_layers' shape, each mode of 3:0:2:1 at 20 steps: a fresh cache's
+    result at the first call (two warm-up steps, the capture and a replay)
+    and at two more replays, the first with other inputs, each against the
+    eager step function
+    (`ops.csp._mode_steps`) on the same inputs, bit for bit; the
+    synchronised wall ms of the eager loop, the first call and a replay;
+    the gather launches a replay adds to the kernel's counters against
+    the gather kernels the profiler sees run in a replay; the memory the
+    captures reserve. Then three calls of csp_refine_batch (vectorized,
+    the process's own cache, which replays from the second call on at the
+    latest) against the same schedule with eager steps, parameters and
+    scores bit for bit. Where the graph differs, the eager loop run twice
+    shows whether the eager loop itself is reproducible: the graph may
+    then differ by no more than two eager runs do."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyp_tpu_torch.ops import csp, kernels
+
+    c = CSP_LAYERS
+    n, pixel = c["box"], c["pixel"]
+    args, gen = _csp_layers_inputs()
+    params = args[0]
+    other = params._replace(
+        tilt_shifts=params.tilt_shifts + torch.randn(
+            params.tilt_shifts.shape, generator=gen, device=gen.device),
+        particle_eulers=params.particle_eulers + torch.randn(
+            params.particle_eulers.shape, generator=gen, device=gen.device))
+    gl = kernels.csp_slice_gather
+    graphs = csp.ModeGraphs()
+    eager = _EagerSteps()
+    row = {"phase": "csp_graph", "modes": list(c["modes"]),
+           "iters": c["iters"]}
+    ok = True
+    for mode in c["modes"]:
+        h = csp._Steps(mode, n, pixel, c["iters"], 0.3, 0.1, 300.0, 2.7,
+                       0.07, 0.0, 0.0)
+        with torch.no_grad():
+            b1 = csp._mode_buffers(*args, h)
+            b2 = csp._mode_buffers(other, *args[1:], h)
+        want1, eager_s = _sync_s(lambda: eager.run(h, b1))
+        want2 = eager.run(h, b2)
+        reserved = torch.cuda.memory_reserved()
+        got1, first_s = _sync_s(lambda: graphs.run(h, b1))
+        reserved = torch.cuda.memory_reserved() - reserved
+        f0, b0 = gl.launches, gl.backward_launches
+        got2, replay_s = _sync_s(lambda: graphs.run(h, b2))
+        launches = (gl.launches - f0, gl.backward_launches - b0)
+        f0, b0 = gl.launches, gl.backward_launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got3 = graphs.run(h, b1)
+            torch.cuda.synchronize()
+        counted = (gl.launches - f0, gl.backward_launches - b0)
+        ran = tuple(sum(e.count for e in prof.key_averages() if name in e.key)
+                    for name in ("slice_gather_forward",
+                                 "slice_gather_backward"))
+        ok = ok and counted == ran == launches
+        blocks = csp.MODE_BLOCKS[mode]
+        equal = all(torch.equal(g[k], w[k]) for g, w in
+                    ((got1, want1), (got2, want2), (got3, want1))
+                    for k in blocks)
+        r = {"eager_ms": 1e3 * eager_s, "first_call_ms": 1e3 * first_s,
+             "replay_ms": 1e3 * replay_s, "replay_launches": launches,
+             "profiled_replay_kernels": ran,
+             "reserved_by_capture_GiB": reserved / 2**30,
+             "bit_equal": equal}
+        if not equal:
+            again = eager.run(h, b2)
+            r["graph_vs_eager"] = _differ([got2[k] for k in blocks],
+                                          [want2[k] for k in blocks])
+            r["eager_vs_eager"] = _differ([again[k] for k in blocks],
+                                          [want2[k] for k in blocks])
+            ok = ok and _within(r["graph_vs_eager"], r["eager_vs_eager"])
+        row[f"mode{mode}"] = r
+    row["captures"], row["replays"] = graphs.captures, graphs.replays
+    graphs.clear()
+    # the whole schedule: the process's cache (which replays from the
+    # second call at the latest) against eager steps
+    offs, spin = csp.build_mode_offsets(c["modes"], None, 9)
+
+    def refine():
+        return csp.csp_refine_batch(*args, offs, spin, c["modes"], n, pixel,
+                                    iters_per_mode=c["iters"],
+                                    series_vmap=True)
+
+    def flat(out):
+        return list(out[0]) + list(out[1:])
+
+    r0 = csp.graph.replays
+    with_graphs = [flat(refine()) for _ in range(3)]
+    row["schedule_replays"] = csp.graph.replays - r0
+    cache = csp.graph
+    csp.graph = eager
+    try:
+        plain = flat(refine())
+        torch.cuda.synchronize()
+        equal = [all(torch.equal(a, b) for a, b in zip(o, plain))
+                 for o in with_graphs]
+        row["schedule_bit_equal"] = all(equal)
+        if not all(equal):
+            again = flat(refine())
+            diffs = [_differ(o, plain) for o, e in zip(with_graphs, equal)
+                     if not e]
+            row["schedule_differ"] = tuple(map(max, zip(*diffs)))
+            row["schedule_eager_vs_eager"] = _differ(again, plain)
+    finally:
+        csp.graph = cache
+    # bit for bit, or no wider apart than two eager schedules
+    row["ok"] = ok and row["schedule_replays"] >= 2 * len(c["modes"]) and (
+        row["schedule_bit_equal"]
+        or _within(row["schedule_differ"], row["schedule_eager_vs_eager"]))
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"the CSP step graphs disagree with the eager "
+                           f"steps: {row}")
     return row
 
 
@@ -3940,6 +4097,7 @@ def main():
     preprocess = phase_preprocess(volume)
     csp_layers = phase_csp_layers()
     gather = phase_csp_gather()
+    phase_csp_graph()
     tomo_launches = phase_tomography()
     het += tomo_launches.pop("heterogeneity_tilt")
     print(smi, flush=True)

@@ -21,12 +21,16 @@ the step normalization, momentum, termination gate and final keep-or-
 revert choice are taken per series, so a batch of S series computes what
 S separate calls compute. The step loop runs with no host read: the
 termination criteria freeze the parameters through tensor gates with the
-same trip count.
+same trip count. So on the card, where a shape comes back, each mode's
+steps are captured once as a CUDA graph and replayed (`ModeGraphs`), one
+launch for its 20 steps.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -343,6 +347,333 @@ def _grid_search_xv(
                 torch.amax(scores, dim=0))
 
 
+class _Steps(NamedTuple):
+    """The numbers a mode's step loop bakes in besides its tensors."""
+    mode: int
+    n: int
+    pixel_size: float
+    iters: int
+    lr: float
+    reg_weight: float
+    voltage_kv: float
+    cs_mm: float
+    amplitude_contrast: float
+    step_tol: float
+    value_tol: float
+
+
+def _mode_loss(p, b, h):
+    """A mode's objective at parameters p, one value per series: the score
+    on b's windows (with b's precomputed "u0" / "c0" where present) less
+    the trajectory penalty."""
+    score = csp_score(
+        p, b["xv"], b["window_centers"], b["tilt_defocus"], b["mask_pts"],
+        b["Fref"], b["tilt_weights"], b["valid"], h.n, h.pixel_size,
+        h.voltage_kv, h.cs_mm, h.amplitude_contrast, xv_precomputed=True,
+        u=b.get("u0"), c=b.get("c0"))
+    reg = (_smoothness_penalty(p.tilt_shifts)
+           + _smoothness_penalty(p.tilt_angles[..., None]))
+    return score - h.reg_weight * reg
+
+
+def _mode_buffers(params, xv, window_centers, tilt_defocus, mask_pts, Fref,
+                  tilt_weights, valid, h: _Steps):
+    """The tensors `_mode_steps` reads for mode h.mode from the start
+    `params`: the parameters and windows, the reference's slice values "u0"
+    (shift modes) and the CTF "c0" (modes that move neither depth nor
+    defocus) at the start, and the start state."""
+    b = dict(zip(CspParams._fields, params), xv=xv,
+             window_centers=window_centers, tilt_defocus=tilt_defocus,
+             mask_pts=mask_pts, Fref=Fref, tilt_weights=tilt_weights,
+             valid=valid)
+    if h.mode in SHIFT_MODES:
+        b["u0"] = _csp_model_gather(params, mask_pts, Fref, h.n)
+    if h.mode in CTF_CONST_MODES:
+        b["c0"] = _csp_ctf(params, tilt_defocus, mask_pts, h.n, h.pixel_size,
+                           h.voltage_kv, h.cs_mm, h.amplitude_contrast)
+    for k in MODE_BLOCKS[h.mode]:
+        b["m." + k] = torch.zeros_like(b[k])
+    lead = params.tilt_angles.shape[:-1]
+    b["done"] = torch.zeros(lead, device=xv.device)
+    b["prev"] = torch.full(lead, -math.inf, device=xv.device)
+    return b
+
+
+def _mode_steps(b, h: _Steps):
+    """The h.iters gradient steps of mode h.mode on the tensors of `b`, in
+    place. Reads the parameters (one entry per CspParams field), "xv",
+    "window_centers", "tilt_defocus", "mask_pts", "Fref", "tilt_weights",
+    "valid", "u0" / "c0" where the mode has them, and the state:
+    "m.<block>" (the momentum), "done" and "prev". Writes the refined
+    blocks into their entries and the final state into its own.
+
+    A step: the normalized gradient with momentum 0.7 and a cosine-decayed
+    step. step_tol / value_tol are the reference optimizer's termination
+    criteria (csp_OptimizerStepTolerance / csp_OptimizerValueTolerance) as
+    update freezing: once a series' step norm or score gain falls below
+    its tolerance, its later steps do not move it (same trip count); 0 =
+    off. Nothing reads the host, and nothing allocated here outlives the
+    call, so the steps capture as one CUDA graph (ModeGraphs): each step's
+    decay and the tolerance branch are baked in as Python numbers."""
+    blocks = MODE_BLOCKS[h.mode]
+    p = CspParams(*(b[f] for f in CspParams._fields))
+    lead = p.tilt_angles.dim() - 1
+    m = {k: b["m." + k] for k in blocks}
+    done, prev = b["done"], b["prev"]
+
+    def value_and_grad(p):
+        leaves = {k: getattr(p, k).detach().requires_grad_(True)
+                  for k in blocks}
+        with torch.enable_grad():
+            with span("csp.step.forward"):
+                loss = _mode_loss(p._replace(**leaves), b, h)
+                total = loss.sum()
+            with span("csp.step.backward"):
+                g = torch.autograd.grad(total, [leaves[k] for k in blocks])
+        return loss.detach(), dict(zip(blocks, g))
+
+    use_tols = h.step_tol > 0.0 or h.value_tol > 0.0
+    scales = dict(zip(CspParams._fields, STEP_SCALES))
+    for t in range(h.iters):
+        with span("csp.step"):
+            loss, g = value_and_grad(p)
+            with span("csp.step.update"):
+                # one gradient norm per series over the mode's blocks
+                gsq = sum(torch.sum(gi * gi, tuple(range(lead, gi.dim())))
+                          for gi in g.values())
+                gnorm = torch.sqrt(gsq + 1e-12)
+                decay = 0.5 * (1 + math.cos(math.pi * t / h.iters))
+                gate = 1.0 - done
+                upd = {}
+                for k in blocks:
+                    m[k] = 0.7 * m[k] + g[k] / _per_series(gnorm, g[k])
+                    upd[k] = (_per_series(gate, m[k])
+                              * (h.lr * decay * scales[k]) * m[k])
+                p = p._replace(**{k: getattr(p, k) + upd[k] for k in blocks})
+                if use_tols:
+                    usq = sum(torch.sum(ui * ui, tuple(range(lead, ui.dim())))
+                              for ui in upd.values())
+                    unorm = torch.sqrt(usq + 1e-18)
+                    stalled = torch.zeros_like(done, dtype=torch.bool)
+                    if t > 0:
+                        if h.value_tol > 0.0:
+                            stalled = stalled | (loss - prev < h.value_tol)
+                        if h.step_tol > 0.0:
+                            stalled = stalled | (unorm < h.step_tol)
+                    done = torch.maximum(done, stalled.to(done.dtype))
+                    prev = loss
+    with torch.no_grad():
+        for k in blocks:
+            b[k].copy_(getattr(p, k))
+            b["m." + k].copy_(m[k])
+        b["done"].copy_(done)
+        b["prev"].copy_(prev)
+
+
+_MAX_GRAPHS = 8      # captured step loops ModeGraphs keeps
+
+
+class _Captured:
+    """A captured step loop: its graph, the buffers it reads and writes,
+    the key of the _Schedule whose buffers it shares, csp_slice_gather's
+    (forward, backward) launches a replay, and the calls after its capture
+    that replayed it."""
+
+    def __init__(self, graph, bufs, blocks, schedule, launches):
+        self.graph, self.bufs, self.blocks = graph, bufs, blocks
+        self.schedule, self.launches = schedule, launches
+        self.hits = 0
+
+
+class _Schedule:
+    """What the graphs of one schedule share: their buffers, one per name
+    and signature, and one memory pool."""
+
+    def __init__(self, device):
+        self.bufs = {}
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if device.type == "cuda" else None)
+        self.users = 0
+
+
+def _signature(t):
+    return (tuple(t.shape), t.stride(), t.dtype, str(t.device))
+
+
+def _eager_steps(b, h: _Steps) -> dict:
+    """The refined blocks {name: tensor} of `_mode_steps` run as it is,
+    on copies of b's blocks and state: b is left as it is."""
+    blocks = MODE_BLOCKS[h.mode]
+    state = [*blocks, *("m." + k for k in blocks), "done", "prev"]
+    c = {**b, **{k: b[k].clone() for k in state}}
+    _mode_steps(c, h)
+    return {k: c[k] for k in blocks}
+
+
+class ModeGraphs:
+    """The step loops of `_refine_mode_xv` on the card as CUDA graphs,
+    each captured once and replayed after: a cache of at most _MAX_GRAPHS
+    graphs, the least recently used first out (its graph reset, so its
+    pool's memory goes back to the allocator, and its buffers dropped with
+    the last graph that shares them). A key (`key`) is every number the
+    loop bakes in (_Steps: the mode, the box, the pixel size, the step
+    count and each hyperparameter) and every tensor's name, shape,
+    strides, dtype and device.
+
+    A capture pays only where its key comes back: it costs about a second
+    pass of the steps, where a replay saves most of one. So a key not in
+    the cache is captured at its first call while the graphs captured so
+    far come back, and at its second call, running eagerly at its first,
+    once a graph has left the cache (evicted or cleared) that no call
+    replayed after its capture. A replay of a cached graph makes the first
+    call capture again. Zero steps run eagerly: there is nothing to
+    capture.
+
+    Only the main thread captures: a capture fails when another thread
+    synchronises the card meanwhile (a `Timer` does at its end). The
+    port's worker threads (`sched/executor`) refine series while the main
+    thread waits for them; they replay what the cache holds and run the
+    rest eagerly.
+
+    The graphs of one schedule (every key but the mode and the mode's own
+    tensors) share their buffers and one memory pool: they run one after
+    another on the current stream, and each replay first copies in every
+    tensor it reads. A capture warms up with two of the steps on a side
+    stream, then captures them all. Every replay copies the tensors in,
+    replays the graph and returns clones of the refined blocks, so no
+    caller holds a buffer that the next replay overwrites. One lock
+    covers the cache, each capture and each replay from copy-in to
+    clone-out, so threads that share the card share the cache.
+
+    Counters: `captures` and `replays`; each replay adds the
+    csp_slice_gather launches its capture recorded to the kernel's own
+    counters, which count what runs."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+        self._graphs = OrderedDict()
+        self._schedules = {}
+        self._seen = OrderedDict()      # keys run eagerly once, not captured
+        self._capture_at_first = True
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        return len(self._graphs)
+
+    @staticmethod
+    def key(h: _Steps, b: dict):
+        return (h,) + tuple((name, _signature(t))
+                            for name, t in sorted(b.items()))
+
+    @staticmethod
+    def _schedule_key(h: _Steps, b: dict):
+        shared = [*CspParams._fields, "xv", "window_centers", "tilt_defocus",
+                  "mask_pts", "Fref", "tilt_weights", "valid"]
+        return (h._replace(mode=None),) + tuple(
+            (name, _signature(b[name])) for name in shared)
+
+    def run(self, h: _Steps, b: dict) -> dict:
+        """The refined blocks {name: tensor} of `_mode_steps(b, h)`, as new
+        tensors; b is left as it is."""
+        key = self.key(h, b)
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is not None:
+                self._graphs.move_to_end(key)
+                entry.hits += 1
+                self._capture_at_first = True
+            elif h.iters and (threading.current_thread()
+                              is threading.main_thread()):
+                if self._capture_at_first or self._seen.pop(key, False):
+                    entry = self._capture_new(key, h, b)
+                else:
+                    self._seen[key] = True
+                    while len(self._seen) > _MAX_GRAPHS:
+                        self._seen.popitem(last=False)
+            if entry is not None:
+                with span("csp.mode.graph", {"mode": h.mode, "capture": 0}):
+                    for name, x in b.items():
+                        entry.bufs[name].copy_(x)
+                    entry.graph.replay()
+                    self.replays += 1
+                    csp_slice_gather.launches += entry.launches[0]
+                    csp_slice_gather.backward_launches += entry.launches[1]
+                    return {k: entry.bufs[k].clone() for k in entry.blocks}
+        return _eager_steps(b, h)
+
+    def _capture_new(self, key, h, b):
+        skey = self._schedule_key(h, b)
+        sched = self._schedules.get(skey)
+        if sched is None:
+            sched = self._schedules[skey] = _Schedule(b["xv"].device)
+        bufs = {}
+        for name, x in b.items():
+            buf = sched.bufs.get((name, _signature(x)))
+            if buf is None:
+                buf = sched.bufs[(name, _signature(x))] = torch.empty_like(x)
+            bufs[name] = buf
+        with span("csp.mode.graph", {"mode": h.mode, "capture": 1}):
+            for name, x in b.items():
+                bufs[name].copy_(x)
+            graph, launches = self._capture(bufs, h, sched.pool)
+        self.captures += 1
+        sched.users += 1
+        entry = self._graphs[key] = _Captured(graph, bufs, MODE_BLOCKS[h.mode],
+                                              skey, launches)
+        while len(self._graphs) > _MAX_GRAPHS:
+            self._drop(self._graphs.popitem(last=False)[1])
+        return entry
+
+    @staticmethod
+    def _capture(bufs, h, pool):
+        """(a new CUDA graph of the steps of h on bufs, the csp_slice_gather
+        launches it recorded). Two of the steps run first on the capture's
+        side stream: they launch every kernel the capture records (the
+        second step's tolerance test too), so kernels load, and handles
+        and autograd's device threads start, outside the capture. A
+        capture launches nothing: its launches count at each replay."""
+        with torch.cuda.device(bufs["xv"].device):
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: another thread's allocation does not end it
+            capture = torch.cuda.graph(graph, pool=pool,
+                                       capture_error_mode="thread_local")
+            side = capture.capture_stream
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _mode_steps(bufs, h._replace(iters=min(h.iters, 2)))
+            torch.cuda.current_stream().wait_stream(side)
+            f0 = csp_slice_gather.launches
+            b0 = csp_slice_gather.backward_launches
+            with capture:
+                _mode_steps(bufs, h)
+            launches = (csp_slice_gather.launches - f0,
+                        csp_slice_gather.backward_launches - b0)
+            csp_slice_gather.launches = f0
+            csp_slice_gather.backward_launches = b0
+        return graph, launches
+
+    def _drop(self, entry):
+        entry.graph.reset()
+        if entry.hits == 0:
+            self._capture_at_first = False
+        sched = self._schedules[entry.schedule]
+        sched.users -= 1
+        if sched.users == 0:
+            del self._schedules[entry.schedule]
+
+    def clear(self):
+        """Drop every graph and buffer, and forget the keys seen once."""
+        with self._lock:
+            while self._graphs:
+                self._drop(self._graphs.popitem(last=False)[1])
+            self._seen.clear()
+
+
+# the card's captured step loops (ModeGraphs), one cache for the process
+graph = ModeGraphs()
+
+
 def _refine_mode_xv(
     params, xv, window_centers, tilt_defocus, mask_pts, Fref,
     tilt_weights, valid, mode, n, pixel_size, iters, lr, reg_weight,
@@ -350,86 +681,26 @@ def _refine_mode_xv(
     step_tol: float = 0.0, value_tol: float = 0.0,
 ):
     """Gradient ascent of one mode's blocks on precomputed window samples
-    xv (..., T, P, G): `iters` steps of the normalized gradient with
-    momentum 0.7 and a cosine-decayed step, then the refined parameters
-    are kept only where they score at least the start's (per series).
-
-    step_tol / value_tol: the reference optimizer's termination criteria
-    (csp_OptimizerStepTolerance / csp_OptimizerValueTolerance) as update
-    freezing: once a series' step norm or score gain falls below its
-    tolerance, its later steps do not move it (same trip count). 0 = off.
-    Returns (params, score per series)."""
-    blocks = MODE_BLOCKS[mode]
-    lead_shape = params.tilt_angles.shape[:-1]
+    xv (..., T, P, G): `iters` steps (`_mode_steps`), then the refined
+    parameters are kept only where they score at least the start's (per
+    series). On the card the steps go through `graph`, which replays them
+    as one CUDA graph per mode and shape where the shape comes back; on
+    the CPU they run as they are. Returns (params, score per series)."""
+    h = _Steps(int(mode), int(n), float(pixel_size), int(iters), float(lr),
+               float(reg_weight), float(voltage_kv), float(cs_mm),
+               float(amplitude_contrast), float(step_tol), float(value_tol))
     with span("csp.mode.start"), torch.no_grad():
-        u0 = (_csp_model_gather(params, mask_pts, Fref, n)
-              if mode in SHIFT_MODES else None)
-        c0 = (_csp_ctf(params, tilt_defocus, mask_pts, n, pixel_size,
-                       voltage_kv, cs_mm, amplitude_contrast)
-              if mode in CTF_CONST_MODES else None)
-        m = {k: torch.zeros_like(getattr(params, k)) for k in blocks}
-        done = torch.zeros(lead_shape, device=xv.device)
-        prev = torch.full(lead_shape, -math.inf, device=xv.device)
-
-    def loss_fn(p):
-        score = csp_score(
-            p, xv, window_centers, tilt_defocus, mask_pts, Fref,
-            tilt_weights, valid, n, pixel_size, voltage_kv, cs_mm,
-            amplitude_contrast, xv_precomputed=True, u=u0, c=c0)
-        reg = (_smoothness_penalty(p.tilt_shifts)
-               + _smoothness_penalty(p.tilt_angles[..., None]))
-        return score - reg_weight * reg
-
-    def value_and_grad(p):
-        leaves = {k: getattr(p, k).detach().requires_grad_(True)
-                  for k in blocks}
-        with torch.enable_grad():
-            with span("csp.step.forward"):
-                loss = loss_fn(p._replace(**leaves))
-                total = loss.sum()
-            with span("csp.step.backward"):
-                g = torch.autograd.grad(total, [leaves[k] for k in blocks])
-        return loss.detach(), dict(zip(blocks, g))
-
-    use_tols = step_tol > 0.0 or value_tol > 0.0
-    scales = dict(zip(CspParams._fields, STEP_SCALES))
-    p = params
-    for t in range(iters):
-        with span("csp.step"):
-            loss, g = value_and_grad(p)
-            with span("csp.step.update"):
-                # one gradient norm per series over the mode's blocks
-                gsq = sum(torch.sum(gi * gi,
-                                    tuple(range(len(lead_shape), gi.dim())))
-                          for gi in g.values())
-                gnorm = torch.sqrt(gsq + 1e-12)
-                decay = 0.5 * (1 + math.cos(math.pi * t / iters))
-                gate = 1.0 - done
-                upd = {}
-                for k in blocks:
-                    m[k] = 0.7 * m[k] + g[k] / _per_series(gnorm, g[k])
-                    upd[k] = (_per_series(gate, m[k])
-                              * (lr * decay * scales[k]) * m[k])
-                p = p._replace(**{k: getattr(p, k) + upd[k] for k in blocks})
-                if use_tols:
-                    usq = sum(torch.sum(ui * ui,
-                                        tuple(range(len(lead_shape), ui.dim())))
-                              for ui in upd.values())
-                    unorm = torch.sqrt(usq + 1e-18)
-                    stalled = torch.zeros_like(done, dtype=torch.bool)
-                    if t > 0:
-                        if value_tol > 0.0:
-                            stalled = stalled | (loss - prev < value_tol)
-                        if step_tol > 0.0:
-                            stalled = stalled | (unorm < step_tol)
-                    done = torch.maximum(done, stalled.to(done.dtype))
-                    prev = loss
+        b = _mode_buffers(params, xv, window_centers, tilt_defocus, mask_pts,
+                          Fref, tilt_weights, valid, h)
+    refined = (graph.run(h, b) if xv.device.type == "cuda"
+               else _eager_steps(b, h))
+    p = params._replace(**refined)
     with span("csp.mode.keep"), torch.no_grad():
-        s0 = loss_fn(params)
-        s1 = loss_fn(p)
+        s0 = _mode_loss(params, b, h)
+        s1 = _mode_loss(p, b, h)
         better = s1 >= s0
-        p_final = CspParams(*(torch.where(_per_series(better, a), b, a)
-                              for a, b in zip(params, p)))
+        p_final = CspParams(*(torch.where(_per_series(better, a), b_, a)
+                              for a, b_ in zip(params, p)))
         return p_final, torch.where(better, s1, s0)
 
 

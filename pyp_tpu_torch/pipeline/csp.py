@@ -168,6 +168,8 @@ def csp_swarm_one(item: dict, params: dict, ref_volume, work_dir=".",
             refined = refined._replace(
                 tilt_angles=_rotreg_track(refined.tilt_angles, params),
                 axis_angles=_rotreg_track(refined.axis_angles, params))
+    # the step graphs at this series' shapes serve no later stage
+    csp_ops.graph.clear()
 
     # per-tilt movie-frame refinement (csp_frames): dose-weighted polished
     # windows instead of the plain tilt windows
@@ -534,6 +536,8 @@ def csp_swarm_batch(items: list, params: dict, ref_volume, work_dir=".",
                 series_per_dispatch=cfg["series_per_dispatch"], **kw)
         mode_scores_b = mode_scores_b.cpu().numpy()
         pscores_b = pscores_b.cpu().numpy()
+    # the step graphs at this batch's shapes serve no later stage
+    csp_ops.graph.clear()
 
     refined_list, scores_list, pscore_list = [], [], []
     acc = prev_acc

@@ -288,13 +288,14 @@ def phase_build():
         return name, os.path.relpath(path, ROOT), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         built = list(pool.map(build, ("shift_scored_match", "pypio",
-                                      "csp_slice_gather")))
+                                      "csp_slice_gather", "csp_score")))
     emit({"phase": "build", "kernel": "shift_scored_match",
           "library": built[0][1], "kernel_seconds": built[0][2],
           "host_library": built[1][1], "host_library_seconds": built[1][2],
           "gather_library": built[2][1], "gather_seconds": built[2][2],
+          "score_library": built[3][1], "score_seconds": built[3][2],
           "seconds": time.perf_counter() - t0})
 
 
@@ -2915,20 +2916,20 @@ def phase_csp_layers():
                 torch.cuda.max_memory_allocated() / 2**30)
     # one gradient step of mode 1 (eulers) on the vectorized batch, split
     with torch.no_grad():
-        c0 = csp._csp_ctf(params, df, mask, n, pixel, 300.0, 2.7, 0.07)
+        df0 = csp._csp_df(params, df, pixel)
         u0 = csp._csp_model_gather(params, mask, Fref, n)
     row["gather_ms"] = _median_ms(
         lambda: csp._csp_model_gather(params, mask, Fref, n), reps=5)
     row["ncc_ms"] = _median_ms(lambda: csp._csp_ncc(
         params, xv, wc, df, mask, Fref, n, pixel, 300.0, 2.7, 0.07,
-        u=u0, c=c0), reps=5)
+        u=u0, df=df0), reps=5)
 
     def step():
         e = params.particle_eulers.detach().requires_grad_(True)
         with torch.enable_grad():
             s = csp.csp_score(params._replace(particle_eulers=e), xv, wc, df,
                               mask, Fref, tw, valid, n, pixel,
-                              xv_precomputed=True, c=c0)
+                              xv_precomputed=True, df=df0)
             torch.autograd.grad(s.sum(), [e])
 
     row["step_ms"] = _median_ms(step, reps=5)
@@ -3055,6 +3056,192 @@ def phase_csp_gather():
     return row
 
 
+def _device_ms(fn, names, reps=11):
+    """Mean device ms of a launch of each kernel whose name holds one of
+    `names`, over `reps` calls of fn after one more, from the profiler's
+    CUDA activity (so the host's launch gaps are left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for name in names:
+        evs = [e for e in prof.key_averages() if name in e.key]
+        n = sum(e.count for e in evs)
+        us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+                 for e in evs)
+        out.append(us / n / 1e3 if n else None)
+    return out
+
+
+CSP_SCORE_KW = dict(voltage_kv=300.0, cs_mm=2.7, amplitude_contrast=0.07)
+
+
+def _csp_score_cases():
+    """The shapes the CSP score kernels serve, on the card: name -> (dshift,
+    df, xv, u, mask, n, pixel). csp_layers' (the schedule's geometry on its
+    noise windows), one series of the pipeline at box 256 (41 x 64 rows,
+    the band's thousands of points), and a grid-search batch (9 candidate
+    shifts of 2 x 41 x 128 rows, which read the windows and slice values
+    once for all)."""
+    import torch
+
+    from pyp_tpu_torch.ops import csp
+    from pyp_tpu_torch.ops.refine3d import make_mask_points
+
+    c = CSP_LAYERS
+    n, pixel = c["box"], c["pixel"]
+    args, gen = _csp_layers_inputs()
+    params, xv, wc, tdf, mask, Fref = args[:6]
+    with torch.no_grad():
+        cases = {"csp_layers": (
+            csp.project_positions(params) - wc, csp._csp_df(params, tdf, pixel),
+            xv, csp._csp_model_gather(params, mask, Fref, n), mask, n, pixel)}
+    dev = xv.device
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    m256 = torch.as_tensor(make_mask_points(256, 2.0, *c["band"]), device=dev)
+    G = int(m256.shape[0])
+    cases["box256"] = (randn(41, 64, 2, scale=1.5),
+                       15000.0 + randn(41, 64, scale=3000.0),
+                       torch.complex(randn(41, 64, G), randn(41, 64, G)),
+                       torch.complex(randn(41, 64, G), randn(41, 64, G)),
+                       m256, 256, 2.0)
+    d, f, x, u = (t[:2] for t in cases["csp_layers"][:4])
+    cases["grid"] = (d + randn(9, 1, 1, 1, 2), f, x, u, mask, n, pixel)
+    return cases
+
+
+def phase_csp_score():
+    """CSP's CTF-weighted NCC kernels (ops.kernels.csp_score,
+    csrc/csp_score.cu) against the plain chain run in float64 on the card,
+    at the shapes of `_csp_score_cases`: the forward's max abs error and
+    the gradients' relative L2 (dshift, df, u), each beside the float32
+    plain chain's own; the device ms of a forward, of a backward with and
+    without u's gradient (profiler) beside the plain chain's (CUDA events)
+    and the bytes bound (xv and u read once, du written once, at 3.35
+    TB/s). Then one unit of the schedule at csp_layers' shape (modes
+    3:0:2:1 x 20, vectorized) after the one that captures its graphs: 89
+    forward and 80 backward launches, and no call of the plain chain on
+    the card. Bars: error <= 1e-5, relative L2 <= 1e-4, neither more than
+    twice the float32 chain's."""
+    import torch
+
+    from pyp_tpu_torch.ops import csp, kernels
+
+    def grads(fn, ins, W):
+        leaves = [x.detach().clone().requires_grad_(True) for x in ins]
+        ncc = fn(*leaves)
+        return ncc.detach(), torch.autograd.grad(torch.sum(W * ncc), leaves)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.to(b.dtype) - b)
+                     / torch.linalg.vector_norm(b))
+
+    row = {"phase": "csp_score"}
+    ok = True
+    for name, (ds, df, xv, u, mask, n, pixel) in _csp_score_cases().items():
+        lead = torch.broadcast_shapes(ds.shape[:-1], df.shape, xv.shape[:-1],
+                                      u.shape[:-1])
+        W = torch.rand(lead, device=xv.device,
+                       generator=torch.Generator(xv.device).manual_seed(1))
+
+        def score(fn, dt=None):
+            m, x = mask, xv
+            if dt is not None:
+                m, x = mask.to(dt), xv.to(torch.complex128)
+            return lambda a, b, c: fn(a, b, x, c, m, n, pixel, **CSP_SCORE_KW)
+
+        ins = (ds, df, u)
+        got, g = grads(score(kernels.csp_score), ins, W)
+        ref, g_ref = grads(score(kernels.csp_score_plain, torch.float64),
+                           (ds.double(), df.double(),
+                            u.to(torch.complex128)), W.double())
+        p32, g_p32 = grads(score(kernels.csp_score_plain), ins, W)
+        r = {"rows": int(W.numel()), "G": int(mask.shape[0]),
+             "max_abs_err": float((got.double() - ref).abs().max()),
+             "plain_f32_max_abs_err": float((p32.double() - ref).abs().max()),
+             "grad_rel_l2": [rel(a, b) for a, b in zip(g, g_ref)],
+             "plain_f32_grad_rel_l2": [rel(a, b) for a, b in zip(g_p32, g_ref)]}
+        del ref, g_ref, p32, g_p32
+        r["ok"] = (r["max_abs_err"] <= 1e-5
+                   and r["max_abs_err"] <= 2 * r["plain_f32_max_abs_err"]
+                   and all(e <= 1e-4 and e <= 2 * e32 for e, e32 in zip(
+                       r["grad_rel_l2"], r["plain_f32_grad_rel_l2"])))
+        ok = ok and r["ok"]
+        # times: the kernels alone (profiler), the plain chain (events)
+        leaves = [x.detach().clone().requires_grad_(True) for x in ins]
+        with torch.no_grad():
+            r["forward_ms"], = _device_ms(
+                lambda: kernels.csp_score(ds, df, xv, u, mask, n, pixel,
+                                          **CSP_SCORE_KW), ("score_forward",))
+        out = kernels.csp_score(*leaves[:2], xv, leaves[2], mask, n, pixel,
+                                **CSP_SCORE_KW)
+        r["backward_du_ms"], = _device_ms(lambda: torch.autograd.grad(
+            out, leaves, W, retain_graph=True), ("score_backward",))
+        r["backward_ms"], = _device_ms(lambda: torch.autograd.grad(
+            out, leaves[:2], W, retain_graph=True), ("score_backward",))
+        del out
+        with torch.no_grad():
+            r["plain_forward_ms"] = _median_ms(lambda: kernels.csp_score_plain(
+                ds, df, xv, u, mask, n, pixel, **CSP_SCORE_KW), reps=5)
+        out = kernels.csp_score_plain(*leaves[:2], xv, leaves[2], mask, n,
+                                      pixel, **CSP_SCORE_KW)
+        r["plain_backward_ms"] = _median_ms(lambda: torch.autograd.grad(
+            out, leaves, W, retain_graph=True), reps=5)
+        del out, leaves
+        # bytes: xv and u read once (a row that every candidate reads
+        # counted once) and 16 a row (the forward writes ncc and the sums,
+        # the backward reads the sums and writes three gradients), and
+        # with u's gradient du written once
+        nbytes = 8 * (xv.numel() + u.numel()) + 16 * W.numel()
+        r["bound_ms"] = 1e3 * nbytes / HBM_BYTES_S
+        r["backward_du_bound_ms"] = 1e3 * (nbytes + 8 * W.numel()
+                                           * mask.shape[0]) / HBM_BYTES_S
+        r["forward_share_of_bound"] = r["bound_ms"] / r["forward_ms"]
+        row[name] = r
+    # one unit of the schedule after the one that captures its graphs
+    c = CSP_LAYERS
+    args, _ = _csp_layers_inputs()
+    offs, spin = csp.build_mode_offsets(c["modes"], None, 9)
+    plain_calls = []
+    plain = kernels.csp_score_plain
+
+    def counted_plain(dshift, *a, **kw):
+        plain_calls.append(dshift.device.type)
+        return plain(dshift, *a, **kw)
+
+    csp.graph.clear()
+    kernels.csp_score_plain = counted_plain
+    try:
+        for _ in range(2):
+            f0 = kernels.csp_score.launches
+            b0 = kernels.csp_score.backward_launches
+            csp.csp_refine_batch(*args, offs, spin, c["modes"], c["box"],
+                                 c["pixel"], iters_per_mode=c["iters"],
+                                 series_vmap=True)
+            torch.cuda.synchronize()
+    finally:
+        kernels.csp_score_plain = plain
+    row["unit_launches"] = kernels.csp_score.launches - f0
+    row["unit_backward_launches"] = kernels.csp_score.backward_launches - b0
+    row["plain_calls_on_the_card"] = plain_calls.count("cuda")
+    row["ok"] = ok and (row["unit_launches"], row["unit_backward_launches"],
+                        row["plain_calls_on_the_card"]) == (89, 80, 0)
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"csp_score disagrees with its plain version, or "
+                           f"launched other than 89 / 80 a unit: {row}")
+    return row
+
+
 class _EagerSteps:
     """Stands in for ops.csp.graph: each mode's steps run eagerly."""
 
@@ -3086,8 +3273,9 @@ def phase_csp_graph():
     eager step function
     (`ops.csp._mode_steps`) on the same inputs, bit for bit; the
     synchronised wall ms of the eager loop, the first call and a replay;
-    the gather launches a replay adds to the kernel's counters against
-    the gather kernels the profiler sees run in a replay; the memory the
+    the gather's and the score's launches a replay adds to the kernels'
+    counters against the kernels the profiler sees run in a replay; the
+    memory the
     captures reserve. Then three calls of csp_refine_batch (vectorized,
     the process's own cache, which replays from the second call on at the
     latest) against the same schedule with eager steps, parameters and
@@ -3108,7 +3296,12 @@ def phase_csp_graph():
             params.tilt_shifts.shape, generator=gen, device=gen.device),
         particle_eulers=params.particle_eulers + torch.randn(
             params.particle_eulers.shape, generator=gen, device=gen.device))
-    gl = kernels.csp_slice_gather
+
+    def counters():     # the gather's and the score's, forward and backward
+        return tuple(getattr(fn, k) for fn in (kernels.csp_slice_gather,
+                                               kernels.csp_score)
+                     for k in ("launches", "backward_launches"))
+
     graphs = csp.ModeGraphs()
     eager = _EagerSteps()
     row = {"phase": "csp_graph", "modes": list(c["modes"]),
@@ -3125,17 +3318,18 @@ def phase_csp_graph():
         reserved = torch.cuda.memory_reserved()
         got1, first_s = _sync_s(lambda: graphs.run(h, b1))
         reserved = torch.cuda.memory_reserved() - reserved
-        f0, b0 = gl.launches, gl.backward_launches
+        f0 = counters()
         got2, replay_s = _sync_s(lambda: graphs.run(h, b2))
-        launches = (gl.launches - f0, gl.backward_launches - b0)
-        f0, b0 = gl.launches, gl.backward_launches
+        launches = tuple(a - b for a, b in zip(counters(), f0))
+        f0 = counters()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             got3 = graphs.run(h, b1)
             torch.cuda.synchronize()
-        counted = (gl.launches - f0, gl.backward_launches - b0)
+        counted = tuple(a - b for a, b in zip(counters(), f0))
         ran = tuple(sum(e.count for e in prof.key_averages() if name in e.key)
                     for name in ("slice_gather_forward",
-                                 "slice_gather_backward"))
+                                 "slice_gather_backward", "score_forward",
+                                 "score_backward"))
         ok = ok and counted == ran == launches
         blocks = csp.MODE_BLOCKS[mode]
         equal = all(torch.equal(g[k], w[k]) for g, w in
@@ -4097,6 +4291,7 @@ def main():
     preprocess = phase_preprocess(volume)
     csp_layers = phase_csp_layers()
     gather = phase_csp_gather()
+    score = phase_csp_score()
     phase_csp_graph()
     tomo_launches = phase_tomography()
     het += tomo_launches.pop("heterogeneity_tilt")
@@ -4122,7 +4317,16 @@ def main():
         "max_abs_err": gather["max_abs_err"], "ms": gather["kernel_ms"],
         "backward_ms": gather["backward_kernel_ms"],
         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
-        "bound_by": "bytes"}]})
+        "bound_by": "bytes"}, {
+        "name": "csp_score", "route": "cuda",
+        "source": "pyp_tpu_torch/csrc/csp_score.cu", "replaces": None,
+        "launches": {"csp_unit": [score["unit_launches"],
+                                  score["unit_backward_launches"]]},
+        "max_abs_err": score["csp_layers"]["max_abs_err"],
+        "ms": score["csp_layers"]["forward_ms"],
+        "backward_ms": score["csp_layers"]["backward_du_ms"],
+        "plain_ms": score["csp_layers"]["plain_forward_ms"],
+        "bound_ms": score["csp_layers"]["bound_ms"], "bound_by": "bytes"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -42,8 +42,9 @@ from pyp_tpu_torch.ops.fourier_slice import (
     gather_2d_hermitian,
     image_to_fourier,
 )
+from pyp_tpu_torch.ops import kernels
 from pyp_tpu_torch.ops.kernels import csp_slice_gather
-from pyp_tpu_torch.ops.refine3d import _ctf_at_points, make_mask_points
+from pyp_tpu_torch.ops.refine3d import make_mask_points
 from pyp_tpu_torch.utils.timer import span
 
 
@@ -93,7 +94,7 @@ MODE_AXIS = {0: "tilt", 3: "tilt", 4: "tilt", 5: "tilt",
 SHIFT_MODES = (2, 3, 4, 5, 6)
 
 # modes whose block moves neither particle depth nor the defocus offsets:
-# the (T, P, G) CTF is computed once
+# the (T, P) defocus is computed once
 CTF_CONST_MODES = (1, 3, 5, 7)
 
 # per-block step scales (degrees / pixels / Å)
@@ -156,48 +157,37 @@ def _csp_model_gather(params, mask_pts, Fref, n):
     return csp_slice_gather(R_eff, mask_pts, Fref, float(vol_pad))
 
 
-def _csp_ctf(params, tilt_defocus, mask_pts, n, pixel_size,
-             voltage_kv, cs_mm, amplitude_contrast):
-    """(..., T, P, G) CTF at the mask points for the current geometry (mean
-    tilt defocus + per-tilt offset + particle-depth defocus gradient)."""
+def _csp_df(params, tilt_defocus, pixel_size):
+    """(..., T, P) defocus (Å) of every projection for the current geometry:
+    mean tilt defocus + per-tilt offset + particle-depth defocus gradient."""
     depth = particle_depth(params)                       # (..., T, P)
-    df = (tilt_defocus[..., :, None, 0] + params.defocus_offsets[..., :, None]
-          + depth * pixel_size)
-    return _ctf_at_points(mask_pts, n, pixel_size, df[..., None],
-                          df[..., None], 0.0, voltage_kv, cs_mm,
-                          amplitude_contrast, 0.0)
+    return (tilt_defocus[..., :, None, 0] + params.defocus_offsets[..., :, None]
+            + depth * pixel_size)
 
 
 def _csp_ncc(params, xv, window_centers, tilt_defocus, mask_pts, Fref,
              n, pixel_size, voltage_kv, cs_mm, amplitude_contrast,
-             u=None, c=None):
+             u=None, df=None):
     """Per-(tilt, particle) CTF-weighted NCC map (..., T, P); xv
     precomputed. `u` optionally carries precomputed reference slice values
-    (SHIFT_MODES), `c` precomputed CTF values (CTF_CONST_MODES)."""
+    (SHIFT_MODES), `df` the precomputed defocus (CTF_CONST_MODES). The CTF,
+    the shift's phase and the correlation are `ops.kernels.csp_score`: on
+    the card one kernel forward and one backward, on the CPU the
+    elementwise chain."""
     dshift = project_positions(params) - window_centers   # (..., T, P, 2)
     if u is None:
         u = _csp_model_gather(params, mask_pts, Fref, n)
-    if c is None:
-        c = _csp_ctf(params, tilt_defocus, mask_pts, n, pixel_size,
-                     voltage_kv, cs_mm, amplitude_contrast)
-    # model window = projection whose content sits at +dshift from the
-    # window center: M = u exp(-2 pi i g.dshift / n); num = Re<X, M>
-    ph = (-2.0 * math.pi / n) * (mask_pts[:, 0] * dshift[..., 0:1]
-                                 + mask_pts[:, 1] * dshift[..., 1:2])
-    xr, xi, ur, ui = xv.real, xv.imag, u.real, u.imag
-    re_xu = xr * ur + xi * ui          # Re(conj(x) u)
-    im_xu = xr * ui - xi * ur          # Im(conj(x) u)
-    num = torch.sum(c * (re_xu * torch.cos(ph) - im_xu * torch.sin(ph)), -1)
-    den = torch.sqrt(torch.sum(xr * xr + xi * xi, -1)
-                     * torch.sum(c * c * (ur * ur + ui * ui), -1) + 1e-12)
-    return num / den
+    if df is None:
+        df = _csp_df(params, tilt_defocus, pixel_size)
+    return kernels.csp_score(dshift, df, xv, u, mask_pts, n, pixel_size,
+                             voltage_kv, cs_mm, amplitude_contrast)
 
 
 def csp_score(params: CspParams, windows_f, window_centers, tilt_defocus,
               mask_pts, Fref, tilt_weights, valid, n: int, pixel_size: float,
               voltage_kv: float = 300.0, cs_mm: float = 2.7,
               amplitude_contrast: float = 0.07, xv_precomputed: bool = False,
-              u=None, c=None):
+              u=None, df=None):
     """Mean CTF-weighted NCC over all (tilt, particle) projections, one
     value per series. windows_f: (..., T, P, n, nxf) centered spectra, or
     the gathered (..., T, P, G) values with xv_precomputed."""
@@ -205,7 +195,7 @@ def csp_score(params: CspParams, windows_f, window_centers, tilt_defocus,
           else gather_2d_hermitian_batched(windows_f, mask_pts))
     ncc = _csp_ncc(params, xv, window_centers, tilt_defocus, mask_pts, Fref,
                    n, pixel_size, voltage_kv, cs_mm, amplitude_contrast,
-                   u=u, c=c)
+                   u=u, df=df)
     w = tilt_weights[..., :, None] * valid
     return torch.sum(ncc * w, (-2, -1)) / torch.clamp(torch.sum(w, (-2, -1)),
                                                       min=1.0)
@@ -324,9 +314,8 @@ def _grid_search_xv(
     with torch.no_grad():
         u0 = (_csp_model_gather(params, mask_pts, Fref, n)
               if mode in SHIFT_MODES else None)
-        c0 = (_csp_ctf(params, tilt_defocus, mask_pts, n, pixel_size,
-                       voltage_kv, cs_mm, amplitude_contrast)
-              if mode in CTF_CONST_MODES else None)
+        df0 = (_csp_df(params, tilt_defocus, pixel_size)
+               if mode in CTF_CONST_MODES else None)
         # a candidate's working set: ~24 float32 values per (T, P, G) point
         # of the series in the gather and the NCC
         chunk = rows_per_call(xv.device, K, 24 * 4 * xv.numel())
@@ -339,7 +328,7 @@ def _grid_search_xv(
             p2 = _apply_mode_offset(params, mode, off)
             ncc = _csp_ncc(p2, xv, window_centers, tilt_defocus, mask_pts,
                            Fref, n, pixel_size, voltage_kv, cs_mm,
-                           amplitude_contrast, u=u0, c=c0)
+                           amplitude_contrast, u=u0, df=df0)
             scores.append(torch.sum(ncc * w, red) / wsum)
         scores = torch.cat(scores)                          # (K, ..., E)
         best = torch.argmax(scores, dim=0)                  # (..., E)
@@ -364,13 +353,13 @@ class _Steps(NamedTuple):
 
 def _mode_loss(p, b, h):
     """A mode's objective at parameters p, one value per series: the score
-    on b's windows (with b's precomputed "u0" / "c0" where present) less
+    on b's windows (with b's precomputed "u0" / "df0" where present) less
     the trajectory penalty."""
     score = csp_score(
         p, b["xv"], b["window_centers"], b["tilt_defocus"], b["mask_pts"],
         b["Fref"], b["tilt_weights"], b["valid"], h.n, h.pixel_size,
         h.voltage_kv, h.cs_mm, h.amplitude_contrast, xv_precomputed=True,
-        u=b.get("u0"), c=b.get("c0"))
+        u=b.get("u0"), df=b.get("df0"))
     reg = (_smoothness_penalty(p.tilt_shifts)
            + _smoothness_penalty(p.tilt_angles[..., None]))
     return score - h.reg_weight * reg
@@ -380,7 +369,7 @@ def _mode_buffers(params, xv, window_centers, tilt_defocus, mask_pts, Fref,
                   tilt_weights, valid, h: _Steps):
     """The tensors `_mode_steps` reads for mode h.mode from the start
     `params`: the parameters and windows, the reference's slice values "u0"
-    (shift modes) and the CTF "c0" (modes that move neither depth nor
+    (shift modes) and the defocus "df0" (modes that move neither depth nor
     defocus) at the start, and the start state."""
     b = dict(zip(CspParams._fields, params), xv=xv,
              window_centers=window_centers, tilt_defocus=tilt_defocus,
@@ -389,8 +378,7 @@ def _mode_buffers(params, xv, window_centers, tilt_defocus, mask_pts, Fref,
     if h.mode in SHIFT_MODES:
         b["u0"] = _csp_model_gather(params, mask_pts, Fref, h.n)
     if h.mode in CTF_CONST_MODES:
-        b["c0"] = _csp_ctf(params, tilt_defocus, mask_pts, h.n, h.pixel_size,
-                           h.voltage_kv, h.cs_mm, h.amplitude_contrast)
+        b["df0"] = _csp_df(params, tilt_defocus, h.pixel_size)
     for k in MODE_BLOCKS[h.mode]:
         b["m." + k] = torch.zeros_like(b[k])
     lead = params.tilt_angles.shape[:-1]
@@ -403,7 +391,7 @@ def _mode_steps(b, h: _Steps):
     """The h.iters gradient steps of mode h.mode on the tensors of `b`, in
     place. Reads the parameters (one entry per CspParams field), "xv",
     "window_centers", "tilt_defocus", "mask_pts", "Fref", "tilt_weights",
-    "valid", "u0" / "c0" where the mode has them, and the state:
+    "valid", "u0" / "df0" where the mode has them, and the state:
     "m.<block>" (the momentum), "done" and "prev". Writes the refined
     blocks into their entries and the final state into its own.
 
@@ -472,12 +460,16 @@ def _mode_steps(b, h: _Steps):
 
 _MAX_GRAPHS = 8      # captured step loops ModeGraphs keeps
 
+# the hand-written kernels a step launches, whose launch counters a replay
+# adds to
+_COUNTED = (csp_slice_gather, kernels.csp_score)
+
 
 class _Captured:
     """A captured step loop: its graph, the buffers it reads and writes,
-    the key of the _Schedule whose buffers it shares, csp_slice_gather's
-    (forward, backward) launches a replay, and the calls after its capture
-    that replayed it."""
+    the key of the _Schedule whose buffers it shares, the (forward,
+    backward) launches a replay makes of each kernel of _COUNTED, and the
+    calls after its capture that replayed it."""
 
     def __init__(self, graph, bufs, blocks, schedule, launches):
         self.graph, self.bufs, self.blocks = graph, bufs, blocks
@@ -545,8 +537,8 @@ class ModeGraphs:
     covers the cache, each capture and each replay from copy-in to
     clone-out, so threads that share the card share the cache.
 
-    Counters: `captures` and `replays`; each replay adds the
-    csp_slice_gather launches its capture recorded to the kernel's own
+    Counters: `captures` and `replays`; each replay adds the launches of
+    csp_slice_gather and csp_score its capture recorded to the kernels' own
     counters, which count what runs."""
 
     def __init__(self):
@@ -597,8 +589,9 @@ class ModeGraphs:
                         entry.bufs[name].copy_(x)
                     entry.graph.replay()
                     self.replays += 1
-                    csp_slice_gather.launches += entry.launches[0]
-                    csp_slice_gather.backward_launches += entry.launches[1]
+                    for fn, (f, bw) in zip(_COUNTED, entry.launches):
+                        fn.launches += f
+                        fn.backward_launches += bw
                     return {k: entry.bufs[k].clone() for k in entry.blocks}
         return _eager_steps(b, h)
 
@@ -627,8 +620,8 @@ class ModeGraphs:
 
     @staticmethod
     def _capture(bufs, h, pool):
-        """(a new CUDA graph of the steps of h on bufs, the csp_slice_gather
-        launches it recorded). Two of the steps run first on the capture's
+        """(a new CUDA graph of the steps of h on bufs, the (forward,
+        backward) launches it recorded of each kernel of _COUNTED). Two of the steps run first on the capture's
         side stream: they launch every kernel the capture records (the
         second step's tolerance test too), so kernels load, and handles
         and autograd's device threads start, outside the capture. A
@@ -643,14 +636,13 @@ class ModeGraphs:
             with torch.cuda.stream(side):
                 _mode_steps(bufs, h._replace(iters=min(h.iters, 2)))
             torch.cuda.current_stream().wait_stream(side)
-            f0 = csp_slice_gather.launches
-            b0 = csp_slice_gather.backward_launches
+            before = [(fn.launches, fn.backward_launches) for fn in _COUNTED]
             with capture:
                 _mode_steps(bufs, h)
-            launches = (csp_slice_gather.launches - f0,
-                        csp_slice_gather.backward_launches - b0)
-            csp_slice_gather.launches = f0
-            csp_slice_gather.backward_launches = b0
+            launches = tuple((fn.launches - f0, fn.backward_launches - b0)
+                             for fn, (f0, b0) in zip(_COUNTED, before))
+            for fn, (f0, b0) in zip(_COUNTED, before):
+                fn.launches, fn.backward_launches = f0, b0
         return graph, launches
 
     def _drop(self, entry):

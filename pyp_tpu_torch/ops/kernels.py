@@ -21,14 +21,24 @@ and one backward (`csrc/csp_slice_gather.cu`) behind a
 `torch.autograd.Function`; on a CPU tensor, `csp_slice_gather_plain`,
 the elementwise chain through `fourier_slice.gather_3d_hermitian` that
 the kernel replaces (and autograd through it).
+
+`csp_score`: CSP's CTF-weighted NCC (`ops.csp._csp_ncc`) of every row from
+its shift, its defocus, its window samples and its reference slice values,
+as one kernel forward and one backward (`csrc/csp_score.cu`) behind a
+`torch.autograd.Function`; on a CPU tensor, `csp_score_plain`, the chain
+the kernel replaces (and autograd through it). `csp_score_grad_plain` is
+the backward kernel's arithmetic in PyTorch, its oracle.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
+from pyp_tpu_torch.core import ctf as ctf_model
 from pyp_tpu_torch.ops.fourier_slice import gather_3d_hermitian
 from pyp_tpu_torch.utils.timer import span
 
@@ -361,3 +371,247 @@ def csp_slice_gather(R, mask_pts, Fref, scale):
 
 csp_slice_gather.launches = 0
 csp_slice_gather.backward_launches = 0
+
+
+def csp_score_plain(dshift, df, xv, u, mask_pts, n, pixel_size, voltage_kv,
+                    cs_mm, amplitude_contrast):
+    """Plain PyTorch version: dshift (..., 2) (dy, dx), df (...) Å, xv and
+    u (..., G) complex, mask_pts (G, 2) (ky, kx), the leading axes
+    broadcast -> the CTF-weighted NCC (...): the CTF at df
+    (`refine3d._ctf_at_points` with df1 = df2), the phase of the shift,
+    and num / sqrt(sum |x|^2 * sum c^2 |u|^2 + 1e-12) over G."""
+    from pyp_tpu_torch.ops.refine3d import _ctf_at_points
+
+    c = _ctf_at_points(mask_pts, n, pixel_size, df[..., None], df[..., None],
+                       0.0, voltage_kv, cs_mm, amplitude_contrast, 0.0)
+    # model window = projection whose content sits at +dshift from the
+    # window center: M = u exp(-2 pi i g.dshift / n); num = Re<X, M>
+    ph = (-2.0 * math.pi / n) * (mask_pts[:, 0] * dshift[..., 0:1]
+                                 + mask_pts[:, 1] * dshift[..., 1:2])
+    xr, xi, ur, ui = xv.real, xv.imag, u.real, u.imag
+    re_xu = xr * ur + xi * ui          # Re(conj(x) u)
+    im_xu = xr * ui - xi * ur          # Im(conj(x) u)
+    num = torch.sum(c * (re_xu * torch.cos(ph) - im_xu * torch.sin(ph)), -1)
+    den = torch.sqrt(torch.sum(xr * xr + xi * xi, -1)
+                     * torch.sum(c * c * (ur * ur + ui * ui), -1) + 1e-12)
+    return num / den
+
+
+def csp_score_grad_plain(dshift, df, xv, u, mask_pts, n, pixel_size,
+                         voltage_kv, cs_mm, amplitude_contrast, grad):
+    """Plain PyTorch version of the backward kernel: the gradients (d
+    dshift, d df, d u) of sum(grad * csp_score_plain(...)) for grad of the
+    broadcast leading shape, each summed to its input's shape, in closed
+    form: with ncc = num / D, D = sqrt(X U + 1e-12), gA = grad / D and gU =
+    -grad ncc X / (2 D^2) are the gradients of num and U = sum c^2 |u|^2;
+    per point d num / d ph = -c Re(conj(x) u e^{i ph} i), d num / d c = Re(
+    conj(x) u e^{i ph}), d c / d df = -cos(chi + amp) pi lam |g|^2, and
+    d u = gA c x e^{-i ph} + 2 gU c^2 u (dL/dRe u + i dL/dIm u)."""
+    gy = mask_pts[:, 0] / (n * pixel_size)
+    gx = mask_pts[:, 1] / (n * pixel_size)
+    g = torch.sqrt(gy * gy + gx * gx)
+    lam = ctf_model.wavelength(voltage_kv)
+    arg = (ctf_model.chi(g, df[..., None], voltage_kv, cs_mm)
+           + math.atan2(amplitude_contrast,
+                        math.sqrt(max(1.0 - amplitude_contrast ** 2, 0.0))))
+    c = -torch.sin(arg)
+    dc_ddf = -torch.cos(arg) * (math.pi * lam * g * g)
+    k = -2.0 * math.pi / n
+    ph = k * (mask_pts[:, 0] * dshift[..., 0:1] + mask_pts[:, 1] * dshift[..., 1:2])
+    cp, sp = torch.cos(ph), torch.sin(ph)
+    xr, xi, ur, ui = xv.real, xv.imag, u.real, u.imag
+    re, im = xr * ur + xi * ui, xr * ui - xi * ur
+    u2 = ur * ur + ui * ui
+    num = torch.sum(c * (re * cp - im * sp), -1)
+    X = torch.sum(xr * xr + xi * xi, -1)
+    U = torch.sum(c * c * u2, -1)
+    q = X * U + 1e-12
+    D = torch.sqrt(q)
+    gA = (grad / D)[..., None]
+    gU = (-0.5 * grad * (num / D) * (X / q))[..., None]
+    dnum_dph = -c * (re * sp + im * cp)
+    d_shift = gA[..., 0, None] * torch.stack(
+        [torch.sum(dnum_dph * (k * mask_pts[:, 0]), -1),
+         torch.sum(dnum_dph * (k * mask_pts[:, 1]), -1)], -1)
+    d_df = torch.sum((gA * (re * cp - im * sp) + 2.0 * gU * c * u2) * dc_ddf,
+                     -1)
+    du = (gA * c * torch.complex(xr * cp + xi * sp, xi * cp - xr * sp)
+          + 2.0 * gU * c * c * u)
+    return (d_shift.sum_to_size(dshift.shape), d_df.sum_to_size(df.shape),
+            du.sum_to_size(u.shape))
+
+
+def _score_launchers():
+    from pyp_tpu_torch.ops import _build
+
+    lib = _build.load("csp_score")
+    fwd, bwd = lib.csp_score_forward, lib.csp_score_backward
+    if fwd.argtypes is None:
+        head = ([ctypes.c_void_p, ctypes.c_longlong] * 4
+                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
+                + [ctypes.c_float] * 4)
+        fwd.argtypes = head + [ctypes.c_void_p] * 3
+        bwd.argtypes = head + [ctypes.c_void_p] * 6
+        fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+@functools.lru_cache(maxsize=64)
+def _score_consts(n, pixel_size, voltage_kv, cs_mm, amplitude_contrast):
+    """The kernel's four numbers: -2 pi / n, chi's factors of |k|^2 df and
+    |k|^4 (at the chain's float32 wavelength), and the amplitude
+    contrast's phase."""
+    lam = float(ctf_model.wavelength(voltage_kv))
+    npix2 = float(n * pixel_size) ** 2
+    w = amplitude_contrast
+    return (-2.0 * math.pi / n, math.pi * lam / npix2,
+            0.5 * math.pi * cs_mm * 1e7 * lam ** 3 / npix2 ** 2,
+            math.atan2(w, math.sqrt(max(1.0 - w * w, 0.0))))
+
+
+class _CspScore(torch.autograd.Function):
+    """The kernel forward on rows of dshift (rows_s, 2), df (rows_d,), xv
+    (rows_x, G) and u (rows_u, G), each read at row r mod its count, for
+    `rows` rows; the backward kernel for the gradients of dshift, df and,
+    where it requires grad, u, each summed to its own rows. The forward
+    saves each row's three sums for the backward."""
+
+    @staticmethod
+    def forward(ctx, dshift, df, xv, u, mask_pts, rows, consts):
+        dev = dshift.device
+        ncc = torch.empty(rows, dtype=torch.float32, device=dev)
+        sums = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+        err = _score_launchers()[0](
+            *_score_args(dshift, df, xv, u, mask_pts, rows, consts),
+            ncc.data_ptr(), sums.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"csp_score forward launch failed: CUDA "
+                               f"error {err}")
+        csp_score.launches += 1
+        ctx.save_for_backward(dshift, df, xv, u, mask_pts, sums)
+        ctx.rows, ctx.consts = rows, consts
+        return ncc
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        dshift, df, xv, u, mask_pts, sums = ctx.saved_tensors
+        rows, dev = ctx.rows, dshift.device
+        if grad.dtype != torch.float32:
+            raise TypeError(f"csp_score: the output's gradient is "
+                            f"{grad.dtype}, expected float32")
+        grad = grad.contiguous()
+        d_shift = torch.empty((rows, 2), dtype=torch.float32, device=dev)
+        d_df = torch.empty(rows, dtype=torch.float32, device=dev)
+        du = (torch.empty((rows, u.shape[1]), dtype=torch.complex64,
+                          device=dev) if ctx.needs_input_grad[3] else None)
+        err = _score_launchers()[1](
+            *_score_args(dshift, df, xv, u, mask_pts, rows, ctx.consts),
+            sums.data_ptr(), grad.data_ptr(), d_shift.data_ptr(),
+            d_df.data_ptr(), du.data_ptr() if du is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"csp_score backward launch failed: CUDA "
+                               f"error {err}")
+        csp_score.backward_launches += 1
+
+        def own_rows(d, x):   # summed over the rows that read x's row again
+            return d if x.shape[0] == rows else d.view(
+                (rows // x.shape[0],) + x.shape).sum(0)
+
+        return (own_rows(d_shift, dshift) if ctx.needs_input_grad[0] else None,
+                own_rows(d_df, df) if ctx.needs_input_grad[1] else None,
+                None, own_rows(du, u) if du is not None else None,
+                None, None, None)
+
+
+def _score_args(dshift, df, xv, u, mask_pts, rows, consts):
+    return (dshift.data_ptr(), dshift.shape[0], df.data_ptr(), df.shape[0],
+            xv.data_ptr(), xv.shape[0], u.data_ptr(), u.shape[0],
+            mask_pts.data_ptr(), mask_pts.shape[0], rows, *consts)
+
+
+def _broadcast(*shapes):
+    """The shape the leading shapes broadcast to (torch.broadcast_shapes,
+    whose first call imports the symbolic-shape machinery, seconds of a
+    process's start)."""
+    out = []
+    for i in range(-max(map(len, shapes)), 0):
+        sizes = {s[i] for s in shapes if len(s) >= -i} - {1}
+        if len(sizes) > 1:
+            raise ValueError(f"csp_score: leading shapes "
+                             f"{[tuple(s) for s in shapes]} do not broadcast")
+        out.append(sizes.pop() if sizes else 1)
+    return torch.Size(out)
+
+
+def _as_rows(x, lead, tail):
+    """x (..., *tail) as contiguous rows (r, *tail) that row i of the
+    leading shape `lead` reads at i mod r: x's leading shape, less any
+    leading 1s, is a suffix of `lead` (the grid search's candidate axis
+    leads), else x is expanded to `lead`."""
+    xl = tuple(x.shape[:x.dim() - len(tail)])
+    while xl and xl[0] == 1:
+        xl = xl[1:]
+    if xl != tuple(lead[len(lead) - len(xl):]):
+        x, xl = x.expand(tuple(lead) + tuple(tail)), lead
+    return x.reshape((math.prod(xl),) + tuple(tail)).contiguous()
+
+
+def csp_score(dshift, df, xv, u, mask_pts, n: int, pixel_size: float,
+              voltage_kv: float, cs_mm: float, amplitude_contrast: float):
+    """dshift (..., 2) float32 (dy, dx), df (...) float32 Å, xv and u (...,
+    G) complex64, mask_pts (G, 2) float32 (ky, kx), all on one device, the
+    leading axes broadcast -> the CTF-weighted NCC (...) float32 of
+    csp_score_plain, differentiable with respect to dshift, df and u. CUDA
+    tensors launch the kernel forward (counted in `csp_score.launches`)
+    and, for the gradients, the backward kernel
+    (`csp_score.backward_launches`); CPU tensors take the plain version
+    and autograd through it. Window samples xv or mask points that require
+    grad are refused: the kernel gives no gradient for them."""
+    for name, t, dt in (("dshift", dshift, torch.float32),
+                        ("df", df, torch.float32),
+                        ("xv", xv, torch.complex64),
+                        ("u", u, torch.complex64),
+                        ("mask_pts", mask_pts, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"csp_score: {name} is {t.dtype}, expected {dt}")
+        if t.device != dshift.device:
+            raise ValueError("csp_score: inputs on different devices")
+    G = mask_pts.shape[0] if mask_pts.dim() == 2 else -1
+    if (mask_pts.dim() != 2 or mask_pts.shape[1] != 2 or dshift.dim() < 1
+            or dshift.shape[-1] != 2 or xv.dim() < 1 or xv.shape[-1] != G
+            or u.dim() < 1 or u.shape[-1] != G):
+        raise ValueError(
+            f"csp_score: shapes dshift {tuple(dshift.shape)}, xv "
+            f"{tuple(xv.shape)}, u {tuple(u.shape)}, mask_pts "
+            f"{tuple(mask_pts.shape)}; expected (..., 2), (..., G), (..., G), "
+            "(G, 2)")
+    lead = _broadcast(dshift.shape[:-1], df.shape, xv.shape[:-1],
+                      u.shape[:-1])
+    for name, t in (("xv", xv), ("mask_pts", mask_pts)):
+        if t.requires_grad:
+            raise ValueError(f"csp_score: {name} requires grad; the kernel "
+                             "gives no gradient for it")
+    if dshift.device.type == "cpu":
+        return csp_score_plain(dshift, df, xv, u, mask_pts, n, pixel_size,
+                               voltage_kv, cs_mm, amplitude_contrast)
+    if dshift.device.type != "cuda":
+        raise ValueError(f"csp_score: no kernel for {dshift.device}")
+    rows = math.prod(lead)
+    consts = _score_consts(int(n), float(pixel_size), float(voltage_kv),
+                           float(cs_mm), float(amplitude_contrast))
+    mask_pts = mask_pts.contiguous()
+    if mask_pts.data_ptr() % 8:     # the kernel reads a point as a float2
+        mask_pts = mask_pts.clone()
+    with torch.cuda.device(dshift.device):
+        out = _CspScore.apply(
+            _as_rows(dshift, lead, (2,)), _as_rows(df, lead, ()),
+            _as_rows(xv, lead, (G,)), _as_rows(u, lead, (G,)),
+            mask_pts, rows, consts)
+    return out.view(lead)
+
+
+csp_score.launches = 0
+csp_score.backward_launches = 0

@@ -150,8 +150,8 @@ def test_window_samples_match(series, problem):
 def test_score_and_gradient_of_each_block(series, problem):
     """csp_score and its gradient with respect to every block; the port's
     gradient is taken as the refinement takes it, with the mode's reused
-    reference gather (u0) and CTF (c0), so the reuse detaches nothing the
-    block's gradient needs."""
+    reference gather (u0) and defocus (df0), so the reuse detaches nothing
+    the block's gradient needs."""
     _, _, _, defocus = series
     for mode in PERTURB:
         ja = jax_args(problem, mode, defocus)
@@ -167,13 +167,13 @@ def test_score_and_gradient_of_each_block(series, problem):
         tp, xv, wc, df, mask, Ft, tw, va = pa
         u0 = (tcsp._csp_model_gather(tp, mask, Ft, NBOX)
               if mode in tcsp.SHIFT_MODES else None)
-        c0 = (tcsp._csp_ctf(tp, df, mask, NBOX, PIXEL, **KW)
-              if mode in tcsp.CTF_CONST_MODES else None)
+        df0 = (tcsp._csp_df(tp, df, PIXEL)
+               if mode in tcsp.CTF_CONST_MODES else None)
         for block in tcsp.MODE_BLOCKS[mode]:
             leaf = getattr(tp, block).clone().requires_grad_(True)
             s = tcsp.csp_score(tp._replace(**{block: leaf}), xv, wc, df, mask,
                                Ft, tw, va, NBOX, PIXEL, **KW,
-                               xv_precomputed=True, u=u0, c=c0)
+                               xv_precomputed=True, u=u0, df=df0)
             (g,) = torch.autograd.grad(s, [leaf])
             close(g, getattr(gj, block), rtol=1e-3, atol_rel=1e-3)
 

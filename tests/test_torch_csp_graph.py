@@ -18,10 +18,11 @@ one shape with different inputs each get their own result.
 The `cuda`-marked tests capture real graphs on a card and skip where there
 is none: the graph path equals the eager step function bit for bit for
 every mode of 3:0:2:1 at its capture and at a replay with new inputs; the
-counters count captures, replays and the gather kernel's launches of each
-replay, as many as the profiler sees run; two threads share the cache
-while one also works on the card eagerly; and a whole `csp_refine_batch`
-with graphs equals one whose steps run eagerly. They need no JAX:
+counters count captures, replays and the gather's and the score's kernel
+launches of each replay, as many as the profiler sees run; two threads
+share the cache while one also works on the card eagerly; and a whole
+`csp_refine_batch` with graphs equals one whose steps run eagerly. They
+need no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_csp_graph.py
@@ -60,9 +61,8 @@ def old_refine_mode_xv(params, xv, window_centers, tilt_defocus, mask_pts,
     with torch.no_grad():
         u0 = (csp._csp_model_gather(params, mask_pts, Fref, n)
               if mode in csp.SHIFT_MODES else None)
-        c0 = (csp._csp_ctf(params, tilt_defocus, mask_pts, n, pixel_size,
-                           voltage_kv, cs_mm, amplitude_contrast)
-              if mode in csp.CTF_CONST_MODES else None)
+        df0 = (csp._csp_df(params, tilt_defocus, pixel_size)
+               if mode in csp.CTF_CONST_MODES else None)
         m = {k: torch.zeros_like(getattr(params, k)) for k in blocks}
         done = torch.zeros(lead_shape, device=xv.device)
         prev = torch.full(lead_shape, -math.inf, device=xv.device)
@@ -71,7 +71,7 @@ def old_refine_mode_xv(params, xv, window_centers, tilt_defocus, mask_pts,
         score = csp.csp_score(
             p, xv, window_centers, tilt_defocus, mask_pts, Fref,
             tilt_weights, valid, n, pixel_size, voltage_kv, cs_mm,
-            amplitude_contrast, xv_precomputed=True, u=u0, c=c0)
+            amplitude_contrast, xv_precomputed=True, u=u0, df=df0)
         reg = (csp._smoothness_penalty(p.tilt_shifts)
                + csp._smoothness_penalty(p.tilt_angles[..., None]))
         return score - reg_weight * reg
@@ -193,7 +193,7 @@ class EagerGraphs(csp.ModeGraphs):
 
     def _capture(self, bufs, h, pool):
         self.last = _Replay(lambda: csp._mode_steps(bufs, h))
-        return self.last, (0, 0)
+        return self.last, tuple((0, 0) for _ in csp._COUNTED)
 
 
 def storages(ts):
@@ -280,7 +280,7 @@ def test_the_key_separates_every_input():
                         torch.empty(x.shape, dtype=x.dtype, device="meta"),
                         x.transpose(0, 1) if x.dim() > 1 else x[None]):
             assert csp.ModeGraphs.key(h, {**b, name: changed}) != key, name
-    assert csp.ModeGraphs.key(h, {k: v for k, v in b.items() if k != "c0"}) != key
+    assert csp.ModeGraphs.key(h, {k: v for k, v in b.items() if k != "df0"}) != key
 
 
 def test_the_cache_keeps_its_bound():
@@ -438,23 +438,25 @@ def _kernels_run(fn, names):
 
 
 @pytest.mark.cuda
-def test_cuda_counters():
+@pytest.mark.parametrize("fn,names", [
+    (kernels.csp_slice_gather, ("slice_gather_forward",
+                                "slice_gather_backward")),
+    (kernels.csp_score, ("score_forward", "score_backward"))])
+def test_cuda_counters(fn, names):
     graphs = csp.ModeGraphs()
     h = _cuda_steps(1)                              # a gather in every step
     b = buffers(_cuda_problem(3), h)
-    gl = kernels.csp_slice_gather
     counts = []
     for _ in range(3):
-        f0, b0 = gl.launches, gl.backward_launches
+        f0, b0 = fn.launches, fn.backward_launches
         graphs.run(h, b)
-        counts.append((gl.launches - f0, gl.backward_launches - b0))
+        counts.append((fn.launches - f0, fn.backward_launches - b0))
     # a forward and a backward each step of a replay, and of the first
     # call's two warm-up steps; the capture itself launches nothing
     assert counts == [(22, 22), (20, 20), (20, 20)]
-    f0, b0 = gl.launches, gl.backward_launches
-    ran = _kernels_run(lambda: graphs.run(h, b),
-                       ("slice_gather_forward", "slice_gather_backward"))
-    assert ran == [gl.launches - f0, gl.backward_launches - b0] == [20, 20]
+    f0, b0 = fn.launches, fn.backward_launches
+    ran = _kernels_run(lambda: graphs.run(h, b), names)
+    assert ran == [fn.launches - f0, fn.backward_launches - b0] == [20, 20]
     assert (graphs.captures, graphs.replays) == (1, 4)
     graphs.clear()
 

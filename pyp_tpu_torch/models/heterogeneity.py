@@ -35,7 +35,11 @@ from pyp_tpu_torch import as_f32, resolve_device
 from pyp_tpu_torch.core.geometry import euler_to_matrix
 from pyp_tpu_torch.models import unet
 from pyp_tpu_torch.models.unet import Conv, Dense
-from pyp_tpu_torch.ops.fourier_slice import gather_2d_hermitian, image_to_fourier
+from pyp_tpu_torch.ops.fourier_slice import (
+    gather_2d_hermitian,
+    image_to_fourier,
+    slice_points,
+)
 from pyp_tpu_torch.ops.refine3d import _ctf_at_points, make_mask_points
 
 
@@ -101,9 +105,7 @@ class HetModel(NamedTuple):
 def _slice_coords(mask_pts, poses, n):
     """Pose-rotated 3D frequency coords (B, G, 3) xyz in cycles/pixel."""
     R = euler_to_matrix(poses[:, 0], poses[:, 1], poses[:, 2])
-    q = (mask_pts[None, :, 1, None] * R[:, None, 0, :]
-         + mask_pts[None, :, 0, None] * R[:, None, 1, :])
-    return q / n
+    return slice_points(R, mask_pts).flip(-1) / n
 
 
 def _slice_data(images, poses, ctf_params, mask_pts, n, pixel_size,

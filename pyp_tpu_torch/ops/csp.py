@@ -728,12 +728,13 @@ def csp_refine_mode(params: CspParams, windows_f, window_centers,
         value_tol=value_tol)
 
 
-def _schedule_core(
-    params, xv, window_centers, tilt_defocus, mask_pts, Fref,
-    tilt_weights, valid, offsets_by_mode, spin_offsets, modes, n,
-    pixel_size, iters_per_mode, lr, reg_weight, voltage_kv, cs_mm,
-    amplitude_contrast, step_tol=0.0, value_tol=0.0,
-):
+def csp_refine_schedule(params: CspParams, xv, window_centers, tilt_defocus,
+                        mask_pts, Fref, tilt_weights, valid, offsets_by_mode,
+                        spin_offsets, modes: tuple, n: int, pixel_size: float,
+                        iters_per_mode: int = 20, lr: float = 0.3,
+                        reg_weight: float = 0.1, voltage_kv: float = 300.0,
+                        cs_mm: float = 2.7, amplitude_contrast: float = 0.07,
+                        step_tol: float = 0.0, value_tol: float = 0.0):
     """One tilt-series' (or series batch's) whole mode schedule: optional
     spin ring, then per mode an optional grid search (csp_GS) followed by
     the gradient polish. Returns (params, mode scores (..., n_modes),
@@ -772,21 +773,6 @@ def _schedule_core(
     return params, mode_scores, pscores
 
 
-def csp_refine_schedule(params: CspParams, xv, window_centers, tilt_defocus,
-                        mask_pts, Fref, tilt_weights, valid, offsets_by_mode,
-                        spin_offsets, modes: tuple, n: int, pixel_size: float,
-                        iters_per_mode: int = 20, lr: float = 0.3,
-                        reg_weight: float = 0.1, voltage_kv: float = 300.0,
-                        cs_mm: float = 2.7, amplitude_contrast: float = 0.07,
-                        step_tol: float = 0.0, value_tol: float = 0.0):
-    """Single-series CSP pass (see _schedule_core)."""
-    return _schedule_core(
-        params, xv, window_centers, tilt_defocus, mask_pts, Fref,
-        tilt_weights, valid, offsets_by_mode, spin_offsets, modes, n,
-        pixel_size, iters_per_mode, lr, reg_weight, voltage_kv, cs_mm,
-        amplitude_contrast, step_tol=step_tol, value_tol=value_tol)
-
-
 def _csp_refine_batch_chunk(params_b, xv_b, window_centers_b, tilt_defocus_b,
                             mask_pts, Fref, tilt_weights_b, valid_b,
                             offsets_by_mode, spin_offsets, modes, n,
@@ -795,12 +781,12 @@ def _csp_refine_batch_chunk(params_b, xv_b, window_centers_b, tilt_defocus_b,
     the whole schedule: vectorized over the series (series_vmap) or one
     series after another."""
     if series_vmap:
-        return _schedule_core(
+        return csp_refine_schedule(
             params_b, xv_b, window_centers_b, tilt_defocus_b, mask_pts,
             Fref, tilt_weights_b, valid_b, offsets_by_mode, spin_offsets,
             modes, n, pixel_size, **kw)
     outs = [
-        _schedule_core(
+        csp_refine_schedule(
             CspParams(*(leaf[s] for leaf in params_b)), xv_b[s],
             window_centers_b[s], tilt_defocus_b[s], mask_pts, Fref,
             tilt_weights_b[s], valid_b[s], offsets_by_mode, spin_offsets,
@@ -819,18 +805,16 @@ def csp_refine_batch(
     lr: float = 0.3, reg_weight: float = 0.1, voltage_kv: float = 300.0,
     cs_mm: float = 2.7, amplitude_contrast: float = 0.07,
     step_tol: float = 0.0, value_tol: float = 0.0,
-    series_per_dispatch: int = 2, series_vmap: bool = False,
+    series_vmap: bool = False,
 ):
     """Batched CSP: S tilt-series (padded to common (T, P) with valid=0
     rows) through the full mode schedule, on the device of the inputs.
 
     series_vmap=False refines the series one after another (one series'
     working set); series_vmap=True vectorizes them in chunks sized from the
-    card's free memory (`rows_per_call`). series_per_dispatch only bounds
-    the JAX package's dispatch length; here it changes nothing. Each
-    series' result is the same either way: every step's normalization,
-    termination and final choice is per series."""
-    del series_per_dispatch
+    card's free memory (`rows_per_call`). Each series' result is the same
+    either way: every step's normalization, termination and final choice is
+    per series."""
     kw = dict(iters_per_mode=iters_per_mode, lr=lr, reg_weight=reg_weight,
               voltage_kv=voltage_kv, cs_mm=cs_mm,
               amplitude_contrast=amplitude_contrast, step_tol=step_tol,

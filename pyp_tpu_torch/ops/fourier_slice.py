@@ -204,6 +204,21 @@ def slice_coords(R, n: int):
     return q_xyz.flip(-1)
 
 
+def slice_points(R, pts):
+    """3D wavenumber coords of the central slice for rotation(s) R
+    (..., 3, 3) at 2D points pts (G, 2) ordered (ky, kx): q = kx R[0] + ky
+    R[1], as (..., G, 3) ordered (qz, qy, qx)."""
+    return (pts[:, 1, None] * R[..., None, 0, :]
+            + pts[:, 0, None] * R[..., None, 1, :]).flip(-1)
+
+
+def slice_at_points(R, pts, Fvol, scale: float):
+    """Values (..., G) of a padded volume spectrum Fvol on the central
+    slice(s) of R (..., 3, 3) at the points pts (G, 2) (ky, kx), the
+    coordinates times `scale` (the padding; gather_3d_hermitian's rules)."""
+    return gather_3d_hermitian(Fvol, slice_points(R, pts), scale=scale)
+
+
 def project(Fvol, R, n: int):
     """Central slice(s) of a padded volume spectrum: (..., n, n//2+1)
     spectra of projections at the unpadded image resolution."""

@@ -19,8 +19,8 @@ the trilinear, Friedel-aware values of a padded reference spectrum at
 every mask point of every rotated central slice, as one kernel forward
 and one backward (`csrc/csp_slice_gather.cu`) behind a
 `torch.autograd.Function`; on a CPU tensor, `csp_slice_gather_plain`,
-the elementwise chain through `fourier_slice.gather_3d_hermitian` that
-the kernel replaces (and autograd through it).
+which is `fourier_slice.slice_at_points`, the elementwise chain that the
+kernel replaces (and autograd through it).
 
 `csp_score`: CSP's CTF-weighted NCC (`ops.csp._csp_ncc`) of every row from
 its shift, its defocus, its window samples and its reference slice values,
@@ -39,7 +39,7 @@ import math
 import torch
 
 from pyp_tpu_torch.core import ctf as ctf_model
-from pyp_tpu_torch.ops.fourier_slice import gather_3d_hermitian
+from pyp_tpu_torch.ops.fourier_slice import slice_at_points, slice_points
 from pyp_tpu_torch.utils.timer import span
 
 
@@ -220,14 +220,9 @@ def launch_kernel(operands, ninv, S):
 shift_scored_match.launches = 0
 
 
-def csp_slice_gather_plain(R, mask_pts, Fref, scale):
-    """Plain PyTorch version: R (..., 3, 3) rotations, mask_pts (G, 2) (ky,
-    kx), Fref (m, m, m//2+1) complex -> (..., G) complex, the values of Fref
-    at the slice points q = kx R[0] + ky R[1], read (qz, qy, qx), times
-    `scale` (gather_3d_hermitian's rules)."""
-    q = (mask_pts[:, 1, None] * R[..., None, 0, :]
-         + mask_pts[:, 0, None] * R[..., None, 1, :])       # (..., G, 3)
-    return gather_3d_hermitian(Fref, q.flip(-1), scale=scale)
+# The CSP model gather's plain version: csp_slice_gather's CPU path and the
+# kernel's oracle.
+csp_slice_gather_plain = slice_at_points
 
 
 def csp_slice_gather_grad_plain(R, mask_pts, Fref, scale, grad):
@@ -238,8 +233,7 @@ def csp_slice_gather_grad_plain(R, mask_pts, Fref, scale, grad):
     kernel's arithmetic, summed over G; the third row is 0)."""
     m, nxf = Fref.shape[0], Fref.shape[2]
     flat = Fref.reshape(-1)
-    q = scale * (mask_pts[:, 1, None] * R[:, None, 0, :]
-                 + mask_pts[:, 0, None] * R[:, None, 1, :]).flip(-1)
+    q = scale * slice_points(R, mask_pts)
     flip = q[..., 2] < 0
     sign = 1.0 - 2.0 * flip.to(q.dtype)
     qs = q * sign[..., None]

@@ -20,8 +20,8 @@ from pyp_tpu_torch.core.ctf import dose_weight_2d
 from pyp_tpu_torch.core.geometry import euler_to_matrix
 from pyp_tpu_torch.ops.fourier_slice import (
     gather_2d_hermitian,
-    gather_3d_hermitian,
     image_to_fourier,
+    slice_at_points,
 )
 from pyp_tpu_torch.ops.refine3d import _ctf_at_points, make_mask_points
 
@@ -61,9 +61,7 @@ def refine_trajectories(
     X = image_to_fourier(windows)                            # (P, F, n, nxf)
 
     R = euler_to_matrix(poses[:, 0], poses[:, 1], poses[:, 2])
-    q = (mask[None, :, 1, None] * R[:, None, 0, :]
-         + mask[None, :, 0, None] * R[:, None, 1, :])
-    u = gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))  # (P, G)
+    u = slice_at_points(R, mask, Fref, float(vol_pad))        # (P, G)
     cp = ctf_params[:, :, None]
     c = _ctf_at_points(mask, n, pixel_size, cp[:, 0], cp[:, 1], cp[:, 2],
                        voltage_kv, cs_mm, amplitude_contrast, cp[:, 3])

@@ -33,8 +33,8 @@ from pyp_tpu_torch.core import ctf as ctf_model
 from pyp_tpu_torch.core.geometry import apply_symmetry_matrices, euler_to_matrix
 from pyp_tpu_torch.ops.fourier_slice import (
     gather_2d_hermitian,
-    gather_3d_hermitian,
     image_to_fourier,
+    slice_at_points,
     volume_to_fourier,
 )
 from pyp_tpu_torch.ops.kernels import shift_scored_match
@@ -224,11 +224,7 @@ def global_search(
     # --- reference side: slice each direction at the mask points ---------
     Rd = euler_to_matrix(directions[:, 0], directions[:, 1],
                          torch.zeros_like(directions[:, 0]))
-    ex = Rd[:, 0, :]
-    ey = Rd[:, 1, :]
-    q = (mask_pts[None, :, 1, None] * ex[:, None, :]
-         + mask_pts[None, :, 0, None] * ey[:, None, :])  # (D, G, 3) xyz
-    u = gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))  # (D, G)
+    u = slice_at_points(Rd, mask_pts, Fref, float(vol_pad))  # (D, G)
     u2 = _abs2(u)
 
     # --- particle side: gather at psi-rotated points ---------------------
@@ -323,9 +319,7 @@ def local_refine(
 
     def score(pose):
         R = euler_to_matrix(pose[:, 0], pose[:, 1], pose[:, 2])  # (B, 3, 3)
-        q = (mask_pts[None, :, 1, None] * R[:, None, 0, :]
-             + mask_pts[None, :, 0, None] * R[:, None, 1, :])    # (B, G, 3)
-        u = gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))
+        u = slice_at_points(R, mask_pts, Fref, float(vol_pad))
         ph = 2.0 * np.pi * (mask_pts[None, :, 0] * pose[:, 3:4]
                             + mask_pts[None, :, 1] * pose[:, 4:5]) / n
         phasor = torch.complex(torch.cos(ph), torch.sin(ph))
@@ -474,9 +468,7 @@ def refine_defocus(
     # the pose is fixed across the sweep: gather the reference slice and
     # the shifted particle values once; only the CTF varies with defocus
     R = euler_to_matrix(poses[:, 0], poses[:, 1], poses[:, 2])
-    q = (mask_pts[None, :, 1, None] * R[:, None, 0, :]
-         + mask_pts[None, :, 0, None] * R[:, None, 1, :])       # (B, G, 3)
-    u = gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))
+    u = slice_at_points(R, mask_pts, Fref, float(vol_pad))
     xv = gather_2d_hermitian(X, mask_pts)                      # (B, G)
     ph = 2.0 * np.pi * (mask_pts[None, :, 0] * poses[:, 3:4]
                         + mask_pts[None, :, 1] * poses[:, 4:5]) / n

@@ -47,8 +47,8 @@ from pyp_tpu_torch.ops import reconstruct as rec
 from pyp_tpu_torch.ops import refine3d as r3
 from pyp_tpu_torch.ops.fourier_slice import (
     gather_2d_hermitian,
-    gather_3d_hermitian,
     image_to_fourier,
+    slice_at_points,
     volume_to_fourier,
 )
 
@@ -324,9 +324,7 @@ def sharded_refine_step(
 
     def score(pose):
         R = euler_to_matrix(pose[:, 0], pose[:, 1], pose[:, 2])
-        q = (pts_s[None, :, 1, None] * R[:, None, 0, :]
-             + pts_s[None, :, 0, None] * R[:, None, 1, :])
-        u = gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))
+        u = slice_at_points(R, pts_s, Fref, float(vol_pad))
         ph = 2.0 * np.pi * (pts_s[None, :, 0] * pose[:, 3:4]
                             + pts_s[None, :, 1] * pose[:, 4:5]) / n
         phasor = torch.complex(torch.cos(ph), torch.sin(ph))

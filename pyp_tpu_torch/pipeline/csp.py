@@ -409,7 +409,6 @@ def _csp_config(params: dict, iteration: int, pixel: float):
         voltage_kv=float(params["scope_voltage"]),
         cs_mm=float(params["scope_cs"]),
         amplitude_contrast=float(params["scope_wgh"]),
-        series_per_dispatch=int(params.get("csp_series_per_dispatch") or 2),
     )
 
 
@@ -532,8 +531,7 @@ def csp_swarm_batch(items: list, params: dict, ref_volume, work_dir=".",
         else:
             refined_b, mode_scores_b, pscores_b = csp_ops.csp_refine_batch(
                 cp_b, xv_b, wc_b, df_b, mask_pts, Fref, tw_b, va_b,
-                offsets_by_mode, spin_offsets, cfg["modes"], box, pixel,
-                series_per_dispatch=cfg["series_per_dispatch"], **kw)
+                offsets_by_mode, spin_offsets, cfg["modes"], box, pixel, **kw)
         mode_scores_b = mode_scores_b.cpu().numpy()
         pscores_b = pscores_b.cpu().numpy()
     # the step graphs at this batch's shapes serve no later stage
@@ -663,6 +661,7 @@ def csp_classify(items_refined, params: dict, references, work_dir=".",
     from pyp_tpu_torch.analysis import occupancies as occ_mod
     from pyp_tpu_torch.core import fsc as fsc_mod
     from pyp_tpu_torch.ops import csp as csp_ops
+    from pyp_tpu_torch.ops import kernels
     from pyp_tpu_torch.ops import reconstruct as rec
     from pyp_tpu_torch.ops.extract import window_particles
     from pyp_tpu_torch.ops.fourier_slice import volume_to_fourier
@@ -710,9 +709,12 @@ def csp_classify(items_refined, params: dict, references, work_dir=".",
             wins_t = window_particles(tilts[t], torch.as_tensor(ci), box)
             xv = _gather_windows(wins_t, mask_pts)           # (P, G)
             for k in range(K):
-                ncc = _tilt_class_scores(
-                    xv, R_eff[t], as_f32(dshift, dev), as_f32(df_t, dev),
-                    mask_pts, Frefs[k], box, pixel, voltage, cs, w_amp)
+                u = kernels.csp_slice_gather(
+                    R_eff[t], mask_pts, Frefs[k],
+                    float(Frefs[k].shape[0] // box))
+                ncc = kernels.csp_score(
+                    as_f32(dshift, dev), as_f32(df_t, dev), xv, u, mask_pts,
+                    box, pixel, voltage, cs, w_amp)
                 scores[t, :, k] = ncc.cpu().numpy()
             valid[t] = valid_t
         # per-particle LogP = tilt-weighted score average (the reference's
@@ -752,32 +754,6 @@ def _gather_windows(wins, mask_pts):
                                                  image_to_fourier)
 
     return gather_2d_hermitian(image_to_fourier(wins), mask_pts)
-
-
-def _tilt_class_scores(xv, R_t, dshift_t, df_t, mask_pts, Fref, n, pixel,
-                       voltage, cs, w):
-    """Per-particle CTF-weighted NCC against one class reference for one
-    tilt: xv (P, G) window samples, R_t (P, 3, 3) effective rotations,
-    dshift_t (P, 2) residual shifts, df_t (P,) defocus. Returns (P,)."""
-    import math
-
-    from pyp_tpu_torch.ops.fourier_slice import gather_3d_hermitian
-    from pyp_tpu_torch.ops.refine3d import _ctf_at_points
-
-    vol_pad = Fref.shape[0] // n
-    q = (mask_pts[None, :, 1, None] * R_t[:, None, 0, :]
-         + mask_pts[None, :, 0, None] * R_t[:, None, 1, :])   # (P, G, 3)
-    u = gather_3d_hermitian(Fref, q.flip(-1), scale=float(vol_pad))
-    c = _ctf_at_points(mask_pts, n, pixel, df_t[:, None], df_t[:, None],
-                       0.0, voltage, cs, w, 0.0)               # (P, G)
-    ph = (-2.0 * math.pi / n) * (mask_pts[None, :, 0] * dshift_t[:, 0:1]
-                                 + mask_pts[None, :, 1] * dshift_t[:, 1:2])
-    model = torch.polar(torch.ones_like(ph), ph) * c * u
-    num = torch.sum((xv.conj() * model).real, -1)
-    den = torch.sqrt(torch.sum(xv.real ** 2 + xv.imag ** 2, -1)
-                     * torch.sum(c * c * (u.real ** 2 + u.imag ** 2), -1)
-                     + 1e-12)
-    return num / den
 
 
 def csp_polish_frames(tilt_movies, cp, defocus, ref_volume, params,

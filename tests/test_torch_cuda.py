@@ -58,10 +58,11 @@ voxel; one process_tilt_series: alignment within 1e-2 px, defocus within
 The subtomogram slice (a 7-tilt series of 6 particles, box 24, made with
 the port's own CPU projection): a vectorized csp_refine_batch of two
 series with a grid search on the card against the sequential one on the
-CPU, parameters within 1e-3 (° and px), scores within 1e-4;
-accumulate_matrices of band-limited windows, half maps atol 1e-4 * max;
-the SVA score block the same angles and shifts, scores within 1e-4;
-refine_trajectories within 1e-3 px.
+CPU, parameters within 1e-3 (° and px), scores within 1e-4; csp_classify
+against two maps, occupancies within 1e-3 and class maps within 3e-3 *
+max below 0.85 Nyquist; accumulate_matrices of band-limited windows,
+half maps atol 1e-4 * max; the SVA score block the same angles and
+shifts, scores within 1e-4; refine_trajectories within 1e-3 px.
 
 The models (convolutions at cuDNN's default precision, TF32 on Hopper):
 the U-Net and the 3D encoder within 1e-2 x max, one Adam step of the
@@ -944,6 +945,40 @@ def test_csp_refine_batch_cuda_matches_cpu(csp_series):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-3)
     np.testing.assert_allclose(g[1].cpu().numpy(), c[1].numpy(), atol=1e-4)
     np.testing.assert_allclose(g[2].cpu().numpy(), c[2].numpy(), atol=1e-4)
+
+
+def test_csp_classify_cuda_matches_cpu(csp_series):
+    """csp_classify of the series against its own map and a 0.8 : 0.2 mix
+    of it with another map (occupancies spread between 30 and 92%): on the
+    card through the gather and score kernels, one forward each per tilt
+    and class, against the plain chain on the CPU."""
+    from pyp_tpu_torch.config.params import defaults
+    from pyp_tpu_torch.core.filters import soft_spherical_mask
+    from pyp_tpu_torch.pipeline import csp as pipe
+
+    vol, images, defocus, starts = csp_series
+    n, T = 24, images.shape[0]
+    rng = np.random.RandomState(7)
+    other = rng.randn(n, n, n).astype(np.float32)
+    other = bandlimit3(other * soft_spherical_mask(n, n * 0.33, 2.0).numpy(),
+                       6) * 20.0
+    refs = [vol, (0.8 * vol + 0.2 * other).astype(np.float32)]
+    p = defaults()
+    p.update({"scope_pixel": PIXEL, "csp_box": n, "csp_rlref": 60.0,
+              "csp_rhref": "5"})
+    items = [{"name": "a", "tilts": images, "params": starts[0],
+              "defocus": defocus}]
+    launches = (kernels.csp_slice_gather.launches, kernels.csp_score.launches)
+    g = pipe.csp_classify(items, p, refs, device="cuda")
+    assert (kernels.csp_slice_gather.launches - launches[0],
+            kernels.csp_score.launches - launches[1]) == (2 * T, 2 * T)
+    c = pipe.csp_classify(items, p, refs, device="cpu")
+    np.testing.assert_allclose(g[1][0], c[1][0], rtol=0, atol=1e-3)
+    for a, b in zip(g[0], c[0]):
+        # close_maps' rule: below 0.85 Nyquist, 3e-3 x max
+        a, b = (bandlimit3(x.volume.cpu().numpy(), 0.85 * n / 2)
+                for x in (a, b))
+        np.testing.assert_allclose(a, b, rtol=0, atol=3e-3 * np.abs(b).max())
 
 
 def test_accumulate_matrices_cuda_matches_cpu():

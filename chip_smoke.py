@@ -290,12 +290,14 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
         built = list(pool.map(build, ("shift_scored_match", "pypio",
-                                      "csp_slice_gather", "csp_score")))
+                                      "csp_slice_gather", "csp_score",
+                                      "insert_scatter")))
     emit({"phase": "build", "kernel": "shift_scored_match",
           "library": built[0][1], "kernel_seconds": built[0][2],
           "host_library": built[1][1], "host_library_seconds": built[1][2],
           "gather_library": built[2][1], "gather_seconds": built[2][2],
           "score_library": built[3][1], "score_seconds": built[3][2],
+          "insert_library": built[4][1], "insert_seconds": built[4][2],
           "seconds": time.perf_counter() - t0})
 
 
@@ -3242,6 +3244,164 @@ def phase_csp_score():
     return row
 
 
+def _insert_scatter_inputs(gen, uniform=False):
+    """The insertion's scatter inputs at csp_layers' shape on the card:
+    (q, vals, c2, set_id, pn, nxf, n_sets) of S*T*P central slices (box n,
+    pad 2; n x n//2+1 samples a row) at random rotations, halves by
+    particle, random values and CTF^2 weights. With `uniform`, the same
+    samples at points drawn uniformly in the padded Nyquist ball, which
+    no two rows share more than by chance (no hot origin)."""
+    import torch
+
+    from pyp_tpu_torch.core.geometry import euler_to_matrix
+    from pyp_tpu_torch.ops.fourier_slice import slice_coords
+
+    c = CSP_LAYERS
+    B, n, pn = c["S"] * c["T"] * c["P"], c["box"], 2 * c["box"]
+    dev = torch.device("cuda")
+    ang = torch.rand((3, B), generator=gen, device=dev) * 360.0
+    q = slice_coords(euler_to_matrix(*ang), n) * 2.0
+    if uniform:
+        d = torch.randn(q.shape, generator=gen, device=dev)
+        r = torch.rand(q.shape[:-1] + (1,), generator=gen, device=dev)
+        q = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+             * (pn // 2) * r ** (1.0 / 3.0)).contiguous()
+    shape = q.shape[:-1]
+    vals = torch.complex(torch.randn(shape, generator=gen, device=dev),
+                         torch.randn(shape, generator=gen, device=dev))
+    c2 = torch.rand(shape, generator=gen, device=dev)
+    set_id = (torch.arange(B, device=dev) % c["P"]) % 2
+    return q, vals, c2, set_id, pn, pn // 2 + 1, 2
+
+
+def _counted_corners(q, pn, nxf, rows=4096):
+    """(samples inside the sphere, corners the kernel adds: inside, kx <=
+    nxf - 1 and a nonzero weight), the plain chain's rules, in row
+    chunks."""
+    import torch
+
+    inside = corners = 0
+    for q_ in q.split(rows):
+        flip = q_[..., 2] < 0
+        qs = torch.where(flip[..., None], -q_, q_)
+        k0 = torch.floor(qs)
+        frac = qs - k0
+        ins = torch.sum(q_ * q_, dim=-1) <= (pn // 2) ** 2
+        inside += int(ins.sum())
+        for c in range(8):
+            d = (c >> 2, (c >> 1) & 1, c & 1)
+            w = ((frac[..., 0] if d[0] else 1 - frac[..., 0])
+                 * (frac[..., 1] if d[1] else 1 - frac[..., 1])
+                 * (frac[..., 2] if d[2] else 1 - frac[..., 2]))
+            kx = k0[..., 2] + d[2]
+            corners += int((ins & (kx <= nxf - 1) & (w != 0)).sum())
+    return inside, corners
+
+
+def phase_insert_scatter():
+    """The insertion's scatter kernel (ops.kernels.insert_scatter,
+    csrc/insert_scatter.cu) at the csp_modes shape (41,984 rows of 64 x 33
+    samples, pn 128, two sets): its device ms (profiler, mean of 11
+    launches) beside the bytes bound (24 B a sample at 3.35 TB/s) and the
+    count of corner atomics; the same samples at points drawn uniformly in
+    the ball (the origin's contention left out); the wrapper's wall and
+    the plain chain's (CUDA events); the max abs error of kernel and plain
+    chain against the plain chain in float64 (row chunks); then
+    `insert_scatter.launches` over one accumulate_matrices of the unit's
+    rows, which should read 1. Bars, 2 wavenumbers inside the Nyquist
+    sphere: the kernel's error within 1e-5 of each accumulator's max and
+    no more than twice the float32 chain's plus 1e-6 of that max, the
+    kernel within 1e-5 of that max of the float32 chain everywhere
+    (atomic order), 1 launch a unit."""
+    import torch
+
+    from pyp_tpu_torch.ops import kernels
+    from pyp_tpu_torch.ops import reconstruct as rec
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    args = _insert_scatter_inputs(gen)
+    q, vals, c2, set_id, pn, nxf, n_sets = args
+    samples = vals.numel()
+    row = {"phase": "insert_scatter", "rows": int(q.shape[0]),
+           "samples": samples, "pn": pn, "n_sets": n_sets}
+    with torch.no_grad():
+        row["kernel_ms"], row["split_ms"] = _device_ms(
+            lambda: kernels.insert_scatter(*args), ("scatter", "split"))
+        row["wrapper_ms"] = _median_ms(lambda: kernels.insert_scatter(*args))
+        row["inside"], row["corner_atomics"] = _counted_corners(q, pn, nxf)
+        row["bound_ms"] = 1e3 * 24 * samples / HBM_BYTES_S
+        row["kernel_share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        row["atomics_per_ns"] = row["corner_atomics"] / (row["kernel_ms"] * 1e6)
+        got = kernels.insert_scatter(*args)
+        p32 = kernels.insert_scatter_plain(*args)
+        torch.cuda.reset_peak_memory_stats()
+        row["plain_ms"] = _median_ms(
+            lambda: kernels.insert_scatter_plain(*args), reps=3)
+        row["plain_peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        ref = None
+        for sl in zip(*(x.split(4096) for x in args[:4])):
+            part = kernels.insert_scatter_plain(
+                sl[0].double(), sl[1].to(torch.complex128), sl[2].double(),
+                sl[3], pn, nxf, n_sets)
+            ref = part if ref is None else tuple(a + b for a, b in zip(ref, part))
+        # a sample within a last bit of the Nyquist sphere is kept or
+        # dropped by its float32 r^2 (kernel and chain alike) and not by
+        # the float64 one: whole terms differ there, so the bars read the
+        # voxels 2 wavenumbers inside it (as the benchmark's acc_rel_err)
+        kz = torch.fft.fftfreq(pn, 1.0 / pn, device=q.device)
+        kx = torch.arange(nxf, device=q.device, dtype=kz.dtype)
+        r = torch.sqrt(kz[:, None, None] ** 2 + kz[None, :, None] ** 2
+                       + kx[None, None, :] ** 2)
+        inner = r <= pn // 2 - 2
+        errs, ok = {}, True
+        for name, a, a32, b in (("num", got[0], p32[0], ref[0]),
+                                ("den", got[1], p32[1], ref[1])):
+            top = float(b.abs().max())
+            d, d32 = ((x.to(b.dtype) - b).abs() for x in (a, a32))
+            e, e32 = float(d[:, inner].max()), float(d32[:, inner].max())
+            errs[name] = {"max": top, "max_abs_err": e,
+                          "plain_f32_max_abs_err": e32,
+                          "edge_max_abs_err": float(d.max()),
+                          "plain_f32_edge_max_abs_err": float(d32.max()),
+                          "kernel_vs_plain_f32": float((a - a32).abs().max())}
+            ok = (ok and e <= 1e-5 * top and e <= 2 * e32 + 1e-6 * top
+                  and errs[name]["kernel_vs_plain_f32"] <= 1e-5 * top)
+        del d, d32, inner, r
+        row["errors"] = errs
+        del got, p32, ref
+        uni = _insert_scatter_inputs(gen, uniform=True)
+        row["uniform_kernel_ms"], = _device_ms(
+            lambda: kernels.insert_scatter(*uni), ("scatter",))
+        row["uniform_inside"], row["uniform_corner_atomics"] = _counted_corners(
+            uni[0], pn, nxf)
+        del uni, args, q, vals, c2
+    # one accumulate_matrices of the unit's rows, as csp_layers runs it
+    c = CSP_LAYERS
+    n, B = c["box"], row["rows"]
+    wins = torch.randn((B, n, n), generator=gen, device="cuda")
+    R = torch.linalg.qr(torch.randn((B, 3, 3), generator=gen, device="cuda"))[0]
+    zeros2 = torch.zeros((B, 2), device="cuda")
+    dfb = torch.full((B,), 20000.0, device="cuda")
+    sub = set_id
+    ones = torch.ones(B, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    l0 = kernels.insert_scatter.launches
+    rec.accumulate_matrices(wins, R, zeros2, dfb, sub, ones, n, c["pixel"])
+    torch.cuda.synchronize()
+    row["unit_launches"] = kernels.insert_scatter.launches - l0
+    row["accumulate_max_memory_allocated_GiB"] = (
+        torch.cuda.max_memory_allocated() / 2**30)
+    row["accumulate_matrices_ms"] = _median_ms(
+        lambda: rec.accumulate_matrices(wins, R, zeros2, dfb, sub, ones, n,
+                                        c["pixel"]), reps=3)
+    row["ok"] = ok and row["unit_launches"] == 1
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"insert_scatter disagrees with the float64 chain "
+                           f"or launched other than once a unit: {row}")
+    return row
+
+
 class _EagerSteps:
     """Stands in for ops.csp.graph: each mode's steps run eagerly."""
 
@@ -4292,6 +4452,7 @@ def main():
     csp_layers = phase_csp_layers()
     gather = phase_csp_gather()
     score = phase_csp_score()
+    insert = phase_insert_scatter()
     phase_csp_graph()
     tomo_launches = phase_tomography()
     het += tomo_launches.pop("heterogeneity_tilt")
@@ -4326,7 +4487,14 @@ def main():
         "ms": score["csp_layers"]["forward_ms"],
         "backward_ms": score["csp_layers"]["backward_du_ms"],
         "plain_ms": score["csp_layers"]["plain_forward_ms"],
-        "bound_ms": score["csp_layers"]["bound_ms"], "bound_by": "bytes"}]})
+        "bound_ms": score["csp_layers"]["bound_ms"], "bound_by": "bytes"}, {
+        "name": "insert_scatter", "route": "cuda",
+        "source": "pyp_tpu_torch/csrc/insert_scatter.cu", "replaces": None,
+        "launches": {"csp_unit": insert["unit_launches"]},
+        "max_abs_err": insert["errors"]["num"]["max_abs_err"],
+        "ms": insert["kernel_ms"], "plain_ms": insert["plain_ms"],
+        "bound_ms": insert["bound_ms"], "bound_by": "bytes",
+        "corner_atomics": insert["corner_atomics"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

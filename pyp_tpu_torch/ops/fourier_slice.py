@@ -263,60 +263,16 @@ def _ewald_curve(R, n: int, ewald_c: float):
     return ewald_c * g2[None, :, :, None] * ez[:, None, None, :]
 
 
-def _corner_lists(qs, vals, c2, q0, frac, in_sphere, pn, nxf):
-    """Flattened (index, Re, Im, CTF^2) lists over the 8 trilinear gridding
-    corners."""
-    idx_all, wv_re, wv_im, wc2 = [], [], [], []
-    for dz in (0, 1):
-        for dy in (0, 1):
-            for dx in (0, 1):
-                w = ((frac[..., 0] if dz else 1 - frac[..., 0])
-                     * (frac[..., 1] if dy else 1 - frac[..., 1])
-                     * (frac[..., 2] if dx else 1 - frac[..., 2]))
-                kz = q0[..., 0] + dz
-                ky = q0[..., 1] + dy
-                kx = q0[..., 2] + dx
-                neg = kx < 0
-                kzz = torch.where(neg, -kz, kz) % pn
-                kyy = torch.where(neg, -ky, ky) % pn
-                kxx = torch.where(neg, -kx, kx)
-                valid = (kxx <= nxf - 1) & in_sphere
-                kxx = torch.clamp(kxx, 0, nxf - 1)
-                w = torch.where(valid, w, torch.zeros_like(w))
-                v = torch.where(neg, vals.conj(), vals)
-                idx_all.append(((kzz * pn + kyy) * nxf + kxx).reshape(-1))
-                wv_re.append((w * v.real).reshape(-1))
-                wv_im.append((w * v.imag).reshape(-1))
-                wc2.append((w * c2).reshape(-1))
-    return (torch.cat(idx_all), torch.cat(wv_re), torch.cat(wv_im),
-            torch.cat(wc2))
-
-
 @span("insert.scatter")
 def _scatter(q, vals, c2, pn: int, nxf: int, n_sets: int, set_id):
     """Trilinear scatter of (vals, c2) at padded coords q into n_sets
     stacked (pn, pn, nxf) accumulator pairs; set_id (B,) picks each
     slice's set (None: all in set 0). Returns (num (n_sets, ...) complex,
-    den (n_sets, ...) real)."""
-    flip = q[..., 2] < 0
-    qs = torch.where(flip[..., None], -q, q)
-    vals = torch.where(flip, vals.conj(), vals)
-    q0f = torch.floor(qs)
-    frac = qs - q0f
-    q0 = q0f.to(torch.int64)
-    in_sphere = torch.sum(q * q, dim=-1) <= (pn // 2) ** 2
-    idx, wre, wim, wc2 = _corner_lists(qs, vals, c2, q0, frac, in_sphere,
-                                       pn, nxf)
-    size = pn * pn * nxf
-    if set_id is not None:
-        per = idx.shape[0] // (8 * vals.shape[0])
-        idx = idx + set_id.repeat_interleave(per).repeat(8) * size
-    kw = dict(dtype=torch.float32, device=q.device)
-    num_re = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wre)
-    num_im = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wim)
-    den = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wc2)
-    return (torch.complex(num_re, num_im).reshape(n_sets, pn, pn, nxf),
-            den.reshape(n_sets, pn, pn, nxf))
+    den (n_sets, ...) real). On the card one kernel
+    (`kernels.insert_scatter`), on the CPU its plain version."""
+    from pyp_tpu_torch.ops import kernels
+
+    return kernels.insert_scatter(q, vals, c2, set_id, pn, nxf, n_sets)
 
 
 def insert_slices(F_parts, ctfs, R, n: int, pad: int = DEFAULT_PAD,
@@ -373,8 +329,8 @@ def insert_slices_halves(F_parts, ctfs, R, subset, weights, n: int,
     inserts it unscaled, which is the same insertion where that amplitude
     is 1.
 
-    The scatter is `index_add_`, which uses atomics on CUDA: the order of
-    the sums varies from run to run."""
+    The scatter uses atomics on CUDA: the order of the sums varies from
+    run to run."""
     pn = pad * n
     q_u = slice_coords(R, n)
     w3 = weights.to(torch.float32)[:, None, None]

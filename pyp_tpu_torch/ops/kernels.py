@@ -28,6 +28,13 @@ as one kernel forward and one backward (`csrc/csp_score.cu`) behind a
 `torch.autograd.Function`; on a CPU tensor, `csp_score_plain`, the chain
 the kernel replaces (and autograd through it). `csp_score_grad_plain` is
 the backward kernel's arithmetic in PyTorch, its oracle.
+
+`insert_scatter`: the insertion's trilinear, Friedel-aware scatter
+(`fourier_slice._scatter`) from the samples' padded coordinates, values,
+CTF^2 weights and set ids to the (num, den) accumulators, as one kernel
+with a 16-byte atomic a corner (`csrc/insert_scatter.cu`); on a CPU
+tensor, `insert_scatter_plain`, the corner lists and `index_add_` that
+the kernel replaces. No gradient: the insertion runs under no_grad.
 """
 
 from __future__ import annotations
@@ -609,3 +616,126 @@ def csp_score(dshift, df, xv, u, mask_pts, n: int, pixel_size: float,
 
 csp_score.launches = 0
 csp_score.backward_launches = 0
+
+
+def _corner_lists(qs, vals, c2, q0, frac, in_sphere, pn, nxf):
+    """Flattened (index, Re, Im, CTF^2) lists over the 8 trilinear gridding
+    corners."""
+    idx_all, wv_re, wv_im, wc2 = [], [], [], []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                w = ((frac[..., 0] if dz else 1 - frac[..., 0])
+                     * (frac[..., 1] if dy else 1 - frac[..., 1])
+                     * (frac[..., 2] if dx else 1 - frac[..., 2]))
+                kz = q0[..., 0] + dz
+                ky = q0[..., 1] + dy
+                kx = q0[..., 2] + dx
+                neg = kx < 0
+                kzz = torch.where(neg, -kz, kz) % pn
+                kyy = torch.where(neg, -ky, ky) % pn
+                kxx = torch.where(neg, -kx, kx)
+                valid = (kxx <= nxf - 1) & in_sphere
+                kxx = torch.clamp(kxx, 0, nxf - 1)
+                w = torch.where(valid, w, torch.zeros_like(w))
+                v = torch.where(neg, vals.conj(), vals)
+                idx_all.append(((kzz * pn + kyy) * nxf + kxx).reshape(-1))
+                wv_re.append((w * v.real).reshape(-1))
+                wv_im.append((w * v.imag).reshape(-1))
+                wc2.append((w * c2).reshape(-1))
+    return (torch.cat(idx_all), torch.cat(wv_re), torch.cat(wv_im),
+            torch.cat(wc2))
+
+
+def insert_scatter_plain(q, vals, c2, set_id, pn: int, nxf: int, n_sets: int):
+    """Plain PyTorch version: the 8 corner lists of every sample, then three
+    `index_add_` passes into n_sets stacked accumulators (their order of
+    sums varies on a card: atomics). Arguments and result as
+    insert_scatter's; float64 inputs give float64 / complex128 sums."""
+    flip = q[..., 2] < 0
+    qs = torch.where(flip[..., None], -q, q)
+    vals = torch.where(flip, vals.conj(), vals)
+    q0f = torch.floor(qs)
+    frac = qs - q0f
+    q0 = q0f.to(torch.int64)
+    in_sphere = torch.sum(q * q, dim=-1) <= (pn // 2) ** 2
+    idx, wre, wim, wc2 = _corner_lists(qs, vals, c2, q0, frac, in_sphere,
+                                       pn, nxf)
+    size = pn * pn * nxf
+    if set_id is not None:
+        per = idx.shape[0] // (8 * vals.shape[0])
+        idx = idx + set_id.repeat_interleave(per).repeat(8) * size
+    kw = dict(dtype=wc2.dtype, device=q.device)
+    num_re = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wre)
+    num_im = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wim)
+    den = torch.zeros(n_sets * size, **kw).index_add_(0, idx, wc2)
+    return (torch.complex(num_re, num_im).reshape(n_sets, pn, pn, nxf),
+            den.reshape(n_sets, pn, pn, nxf))
+
+
+def _scatter_launcher():
+    from pyp_tpu_torch.ops import _build
+
+    fn = _build.load("insert_scatter").insert_scatter
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def insert_scatter(q, vals, c2, set_id, pn: int, nxf: int, n_sets: int):
+    """q (B, ..., 3) float32 padded coordinates (qz, qy, qx), vals (B, ...)
+    complex64 and c2 (B, ...) float32 of every sample, set_id (B,) int64 or
+    None (every row in set 0), all on one device -> (num (n_sets, pn, pn,
+    nxf) complex64, den (n_sets, pn, pn, nxf) float32): the trilinear,
+    Friedel-aware insertion of insert_scatter_plain. CUDA tensors launch
+    the kernel (counted in `insert_scatter.launches`); they must be
+    contiguous. CPU tensors take the plain version. A row's set outside
+    [0, n_sets) raises on the CPU and adds nothing on the card."""
+    for name, t, dt in (("q", q, torch.float32),
+                        ("vals", vals, torch.complex64),
+                        ("c2", c2, torch.float32),
+                        ("set_id", set_id, torch.int64)):
+        if t is None:
+            continue
+        if t.dtype != dt:
+            raise TypeError(f"insert_scatter: {name} is {t.dtype}, "
+                            f"expected {dt}")
+        if t.device != q.device:
+            raise ValueError("insert_scatter: inputs on different devices")
+    if (q.dim() < 2 or q.shape[-1] != 3 or vals.shape != q.shape[:-1]
+            or c2.shape != vals.shape
+            or (set_id is not None and tuple(set_id.shape) != (q.shape[0],))
+            or n_sets < 1 or pn < 1 or nxf < 1):
+        raise ValueError(
+            f"insert_scatter: shapes q {tuple(q.shape)}, vals "
+            f"{tuple(vals.shape)}, c2 {tuple(c2.shape)}, set_id "
+            f"{None if set_id is None else tuple(set_id.shape)}, n_sets "
+            f"{n_sets}; expected (B, ..., 3), (B, ...), (B, ...), (B,), >= 1")
+    if q.device.type == "cpu":
+        return insert_scatter_plain(q, vals, c2, set_id, pn, nxf, n_sets)
+    if q.device.type != "cuda":
+        raise ValueError(f"insert_scatter: no kernel for {q.device}")
+    for name, t in (("q", q), ("vals", vals), ("c2", c2), ("set_id", set_id)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"insert_scatter: {name} must be contiguous")
+    kw = dict(device=q.device)
+    acc = torch.empty((n_sets, pn, pn, nxf, 4), dtype=torch.float32, **kw)
+    num = torch.empty((n_sets, pn, pn, nxf), dtype=torch.complex64, **kw)
+    den = torch.empty((n_sets, pn, pn, nxf), dtype=torch.float32, **kw)
+    with torch.cuda.device(q.device):
+        err = _scatter_launcher()(
+            q.data_ptr(), vals.data_ptr(), c2.data_ptr(),
+            None if set_id is None else set_id.data_ptr(), acc.data_ptr(),
+            num.data_ptr(), den.data_ptr(), vals.numel(),
+            vals.numel() // max(q.shape[0], 1), n_sets, pn, nxf,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"insert_scatter kernel launch failed: CUDA error "
+                           f"{err}")
+    insert_scatter.launches += 1
+    return num, den
+
+
+insert_scatter.launches = 0
